@@ -1,0 +1,18 @@
+"""The EDA runtime substrate the vision engine rides.
+
+  clock         Clock seam: WallClock for serving, VirtualClock for
+                deterministic tests and simulation
+  early_stop    ESD deadline policy + dynamic-ESD AIMD controller
+  telemetry     per-segment turnaround decomposition ledger
+  engine_core   the shared continuous-batching EngineCore: slot-pool row
+                admission, two-class PriorityQueue, LanePool preemption,
+                tick phases + deadline budgets
+"""
+from repro_torch.core.clock import Clock, VirtualClock, WallClock  # noqa: F401
+from repro_torch.core.early_stop import (DynamicESD,  # noqa: F401
+                                         EarlyStopPolicy, budget_mask)
+from repro_torch.core.engine_core import (INNER, OUTER,  # noqa: F401
+                                          BlockPool, EngineCore, LanePool,
+                                          PriorityQueue, batch_axis,
+                                          insert_row)
+from repro_torch.core.telemetry import Ledger, SegmentRecord  # noqa: F401

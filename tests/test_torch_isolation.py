@@ -1,0 +1,88 @@
+"""The port stands alone: no JAX, nothing of the reference package.
+
+A fresh interpreter imports every module of ``repro_torch`` and must end
+with neither ``jax``, ``jaxlib`` nor ``repro`` in ``sys.modules``; the
+same holds for the import statements of ``chip_smoke.py``.  Entry points
+run on the card unless the caller asks for the CPU, and raise — never fall
+back — when no card is there.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_every_module_imports_without_jax_or_reference():
+    mods = list(_modules())
+    assert "repro_torch.streams.vision_engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(len(bad)); print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[0] == "0", out.stdout
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_file_names_jax_or_reference_in_an_import():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        assert not _imported_roots(path) & set(FORBIDDEN), path
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.device import resolve_device
+    from repro_torch.streams import MotionGate, VisionServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VisionServeEngine("e", slots=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MotionGate(1)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    eng = VisionServeEngine("e", slots=1, frame_res=32, input_res=16,
+                            device="cpu")
+    assert eng.batches["outer"].device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
+    """No CUDA here: non-zero exit and no result line.  Alone in a
+    directory: the same."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
