@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's vision main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's two main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Phases (any failure exits non-zero; nothing is swallowed):
+Phases (any failure exits non-zero; nothing is swallowed; each prints its
+wall seconds):
 
-  1. build     compile ``src/repro_torch/kernels/csrc/vision_ops.cu`` with
-               nvcc for sm_90a; print the build time and the card's name
+  1. build     compile ``src/repro_torch/kernels/csrc/vision_ops.cu`` and
+               ``attention.cu`` with nvcc for sm_90a, one nvcc per source,
+               started together; print the build times and the card's name
                and power limit.
-  2. kernels   hold each hand kernel against its plain PyTorch version on
+  2. kernels   hold each vision kernel against its plain PyTorch version on
                the card, at the main path's shapes and at edge shapes
                (uint8 frames, box resampling, g=20 with block=8, a bf16
                pool); time kernel, plain version and, where one PyTorch
@@ -25,15 +27,39 @@ Phases (any failure exits non-zero; nothing is swallowed):
   4. paths     the gateless kernel path (``downscale``) and the plain
                engine path with ``MotionGate(use_kernels=True)``
                (``downscale`` + ``block_sad``), each with its own counts.
-  5. card/CPU  the main path again on the CPU, same weights and frames:
-               per-stream processed/gated/dropped counts and flags equal.
+  5. card/CPU  the vision main path again on the CPU, same weights and
+               frames: per-stream processed/gated/dropped counts and flags
+               equal.
+  6. attention the four attention kernels (paged decode, paged flash,
+               flash, decode) against their plain versions on the card: at
+               the token path's shapes (starcoder2-3b: Hq 24, Hkv 2, D 128,
+               bf16, block 16, 257 table columns, live lengths 33-1000) and
+               at edge shapes (fp32, MHA, D 64, window 8 over a wrapped
+               ring, a row whose table is all -1, ragged S); the main
+               path's shapes in fp32 too, with one row of 1031 keys;
+               TIGHT for fp32, LOOSE for bf16; times with a cold L2 beside
+               ``scaled_dot_product_attention`` over the same (gathered)
+               KV with a mask from the positions.
+  7. tokens    ``ServeEngine`` on full-width, full-depth starcoder2-3b
+               (bf16, random weights from a seed), slots=8, capacity 2048,
+               prefill chunk 128: 16 requests of 33-1000 prompt tokens, 32
+               new tokens each, drained through the paged layout (the
+               default) and then the contiguous one; every request
+               complete, ``ledger.check()``, the pool empty, logits
+               finite, and the layout's two kernels launched.  Prints
+               decode ms/tick, decode and prefill tokens/s and median TTFT.
+  8. tok/CPU   the same engine at reduced depth (2 layers, fp32) on the
+               card and on the CPU with the same weights, both layouts:
+               equal token streams, teacher-forced last logits within
+               TOKEN_TOL (a stream may part only where the CPU's top-two
+               logit margin is below TOKEN_TOL; printed if so).
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
-global flags): the flags are threshold and argmax decisions, and TF32
-rounding could flip them between the card and the CPU.
+global flags): the flags and the sampled tokens are threshold and argmax
+decisions, and TF32 rounding could flip them between the card and the CPU.
 
 The last lines are: the card's name and power limit, one JSON object with
-a ``kernels`` list (launches on the main path, errors, times, bounds), and
+a ``kernels`` list (launches on the main paths, errors, times, bounds), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
 it exits non-zero and prints no result.
 """
@@ -44,10 +70,13 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
 TIGHT = dict(rtol=2e-5, atol=2e-5)  # tests/kernel_harness.py TIGHT
+LOOSE = dict(rtol=2e-2, atol=2e-2)  # tests/kernel_harness.py LOOSE
 
 SLOTS, FRAME_RES, INPUT_RES, GATE_RES, BLOCK = 32, 256, 192, 32, 8
 STREAMS_PER_CLASS, FRAMES, REPEATS = 16, 32, 3
@@ -59,6 +88,22 @@ REPLACES = {
     "block_sad": "src/repro/kernels/vision_ops.py:148",
 }
 SOURCE = "src/repro_torch/kernels/csrc/vision_ops.cu"
+ATTN_REPLACES = {
+    "paged_decode": "src/repro/kernels/paged_attention.py:49",
+    "paged_flash": "src/repro/kernels/paged_attention.py:142",
+    "flash": "src/repro/kernels/flash_attention.py:35",
+    "decode": "src/repro/kernels/decode_attention.py:26",
+}
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+
+# the token main path: starcoder2-3b as served by ServeEngine
+TOK_SLOTS, TOK_CAPACITY, TOK_CHUNK, TOK_BLOCK = 8, 2048, 128, 16
+TOK_REQUESTS, TOK_NEW, TOK_PROMPT = 16, 32, (33, 1000)
+TOK_SEED = 0
+# card vs CPU at reduced depth (fp32): teacher-forced last-position logits
+# must agree within TOKEN_TOL; fp32 sums in another order differ ~1e-5
+TOKEN_TOL = 1e-3
+CPU_REQUESTS, CPU_NEW, CPU_PROMPT = 4, 16, (17, 200)
 
 
 def fail(msg: str) -> None:
@@ -112,15 +157,15 @@ def pixels_read(H: int, W: int, resolutions, method: str) -> int:
     return len(ys) * len(xs)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the fp32 peak."""
+    operations over the peak rate of their type (fp32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(got, want, exact: bool = False) -> float:
+def max_err(got, want, exact: bool = False, tol=TIGHT) -> float:
     import torch
     got = [got] if isinstance(got, torch.Tensor) else list(got)
     want = [want] if isinstance(want, torch.Tensor) else list(want)
@@ -133,7 +178,7 @@ def max_err(got, want, exact: bool = False) -> float:
             fail("kernel output is not finite")
         if exact and not torch.equal(g, w):
             fail("kernel output is not bit-identical to its plain version")
-        torch.testing.assert_close(g.float(), w.float(), **TIGHT)
+        torch.testing.assert_close(g.float(), w.float(), **tol)
         err = max(err, float((g.float() - w.float()).abs().max()))
     return err
 
@@ -295,6 +340,394 @@ def drive(eng, streams):
     return out, dt, eng.ticks - ticks0
 
 
+# ---------------------------------------------------------------------------
+# phase 6: attention kernels
+# ---------------------------------------------------------------------------
+
+
+def attn_case(torch, gen, dev, lens, S, Hq, Hkv, D, bs, M, dtype, nb=None,
+              C=None):
+    """One input set for all four attention kernels: a shuffled block pool
+    holding row b's positions 0..lens[b]-1 (garbage values elsewhere,
+    garbage positions in unreferenced blocks, -1 past each row's length,
+    table columns past it -1), the same KV as a contiguous (B, C) cache
+    (positions -1 past each length), and S queries per row at its last S
+    positions.  Drawn on the host from ``gen``, then moved."""
+    B = len(lens)
+    ncols = [max(1, -(-L // bs)) for L in lens]
+    nb = nb or sum(ncols) + 3
+    C = C or max(ncols) * bs
+    perm = torch.randperm(nb, generator=gen)
+    kp = torch.randn(nb, bs, Hkv, D, generator=gen)
+    vp = torch.randn(nb, bs, Hkv, D, generator=gen)
+    ppos = torch.randint(0, max(lens) + 4, (nb, bs), generator=gen,
+                         dtype=torch.int32)
+    tbl = torch.full((B, M), -1, dtype=torch.int32)
+    k = torch.randn(B, C, Hkv, D, generator=gen)
+    v = torch.randn(B, C, Hkv, D, generator=gen)
+    kv_pos = torch.full((B, C), -1, dtype=torch.int32)
+    take = 0
+    for b, L in enumerate(lens):
+        blocks = perm[take: take + ncols[b]]
+        take += ncols[b]
+        tbl[b, :ncols[b]] = blocks.int()
+        p = torch.arange(ncols[b] * bs)
+        flat = blocks[p // bs] * bs + p % bs
+        kp.view(-1, Hkv, D)[flat[:L]] = k[b, :L]
+        vp.view(-1, Hkv, D)[flat[:L]] = v[b, :L]
+        ppos.view(-1)[flat] = torch.where(p < L, p, -1).int()
+        kv_pos[b, :L] = torch.arange(L, dtype=torch.int32)
+    q = torch.randn(B, S, Hq, D, generator=gen)
+    q_pos = torch.stack([torch.arange(L - S, L) for L in lens]).int()
+    out = dict(q=q, k=k, v=v, kp=kp, vp=vp, ppos=ppos, tbl=tbl, q_pos=q_pos,
+               kv_pos=kv_pos)
+    return {n: (t.to(dev, dtype) if t.is_floating_point() else t.to(dev))
+            for n, t in out.items()}
+
+
+def attn_calls(c, window=0):
+    """{kernel name: (kernel call, plain call)} for the case's S."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import paged_attention as pa_k
+    pool = (c["q"], c["kp"], c["vp"], c["ppos"], c["tbl"], c["q_pos"])
+    dense = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+    if c["q"].shape[1] == 1:
+        return {
+            "paged_decode": (
+                lambda: pa_k.paged_decode_attention(*pool, window=window),
+                lambda: pa_k.paged_decode_attention_plain(*pool,
+                                                          window=window)),
+            "decode": (
+                lambda: dec_k.decode_attention(*dense, window=window),
+                lambda: dec_k.decode_attention_plain(*dense, window=window)),
+        }
+    return {
+        "paged_flash": (
+            lambda: pa_k.paged_flash_attention(*pool, window=window),
+            lambda: pa_k.paged_flash_attention_plain(*pool, window=window)),
+        "flash": (
+            lambda: fa_k.flash_attention(*dense, window=window),
+            lambda: fa_k.flash_attention_plain(*dense, window=window)),
+    }
+
+
+def attn_work(torch, q, q_pos, kv_pos, Hkv, window=0, table_bytes=0):
+    """(bytes, flops) the function needs on these inputs: each live K/V
+    entry (one some query of its row attends) read once per kv head with
+    its position, q read and the output written once, the table; 4*D
+    operations per valid (query row, head, key)."""
+    B, S, Hq, D = q.shape
+    kp_, qp_ = kv_pos[:, None, :].long(), q_pos[:, :, None].long()
+    valid = (kp_ >= 0) & (kp_ <= qp_)
+    if window:
+        valid &= (qp_ - kp_) < window
+    live = int(valid.any(dim=1).sum())
+    pairs = int(valid.sum())
+    item = q.element_size()
+    nbytes = (live * (Hkv * D * 2 * item + 4) + 2 * q.numel() * item
+              + q_pos.numel() * 4 + table_bytes)
+    return nbytes, 4 * D * Hq * pairs, valid
+
+
+def check_attention(torch, dev):
+    """Phase 6.  Returns {name: row} for the JSON line (launches filled in
+    from the token paths)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention_common import paged_gather_plain
+    gen = torch.Generator().manual_seed(1)
+    errs = {k: 0.0 for k in ATTN_REPLACES}
+
+    def hold(c, window, tol):
+        got = {}
+        for name, (kern, plain) in attn_calls(c, window).items():
+            got[name] = max_err(kern(), plain(), tol=tol)
+            errs[name] = max(errs[name], got[name])
+        return got
+
+    # edge shapes: fp32 MHA D 64 with ragged S, GQA with a window, bf16;
+    # lengths shorter than a block for decode, at least S for a chunk
+    for S in (1, 37):
+        at_least = lambda ls: [max(L, S) for L in ls]
+        hold(attn_case(torch, gen, dev, at_least([5, 70, 40, 16]), S, 4, 4,
+                       64, 16, 6, torch.float32), 0, TIGHT)
+        hold(attn_case(torch, gen, dev, at_least([9, 40, 77]), S, 24, 2, 128,
+                       16, 8, torch.float32), 8, TIGHT)
+        hold(attn_case(torch, gen, dev, at_least([9, 40, 77]), S, 24, 2, 128,
+                       16, 8, torch.bfloat16), 0, LOOSE)
+    # a row whose table is all -1 (and whose positions are all -1): 0
+    for S in (1, 5):
+        c = attn_case(torch, gen, dev, [12, 30], S, 8, 2, 64, 16, 4,
+                      torch.float32)
+        c["tbl"][0] = -1
+        c["kv_pos"][0] = -1
+        for name, (kern, plain) in attn_calls(c).items():
+            out = kern()
+            if not torch.equal(out[0], torch.zeros_like(out[0])):
+                fail(f"{name}: a fully masked row is not exactly 0")
+            errs[name] = max(errs[name], max_err(out, plain()))
+    # window 8 over rings that have wrapped: 48 positions written through
+    # 2 table columns of 16 (column 0 now holds 32..47, column 1 16..31)
+    # and through a 32-slot contiguous ring (slot p % 32)
+    ring = attn_case(torch, gen, dev, [32], 1, 24, 2, 128, 16, 3,
+                     torch.float32)
+    ar = lambda lo, hi: torch.arange(lo, hi, dtype=torch.int32, device=dev)
+    ring["ppos"][int(ring["tbl"][0, 0])] = ar(32, 48)
+    ring["ppos"][int(ring["tbl"][0, 1])] = ar(16, 32)
+    ring["kv_pos"][0] = torch.cat([ar(32, 48), ar(16, 32)])
+    for S in (1, 3):
+        ring["q"] = torch.randn(1, S, 24, 128, generator=gen).to(dev)
+        ring["q_pos"] = ar(48 - S, 48)[None]
+        hold(ring, 8, TIGHT)
+    torch.cuda.synchronize()
+    print(f"attention edge shapes: max abs err {errs}", flush=True)
+
+    # the token path's shapes: decode B = 8 slots, prefill one 128-token
+    # chunk of one slot; pool of 8 x 257 blocks, contiguous capacity 2048
+    rows = {}
+    rng = torch.Generator().manual_seed(2)
+    lens = torch.randint(TOK_PROMPT[0], TOK_PROMPT[1] + 1, (TOK_SLOTS,),
+                         generator=rng).tolist()
+    M = -(-(4096 - 1) // TOK_BLOCK) + 1
+    nb = TOK_SLOTS * M
+    # first in fp32 at TIGHT, with one row as long as a main-path request
+    # gets (a 1000-token prompt and 31 decoded): this reaches what only
+    # these shapes reach (live-column compaction past 32 table columns,
+    # more than 48 KB of shared memory, lists of more than 32 key tiles)
+    longest = TOK_PROMPT[1] + TOK_NEW - 1
+    fp32 = {}
+    for S, ls in {1: lens[:-1] + [longest], TOK_CHUNK: [longest]}.items():
+        fp32.update(hold(attn_case(torch, gen, dev, ls, S, 24, 2, 128,
+                                   TOK_BLOCK, M, torch.float32, nb=nb,
+                                   C=TOK_CAPACITY), 0, TIGHT))
+    print(f"attention main-path shapes, fp32 (TIGHT): max abs err {fp32}",
+          flush=True)
+    shapes = {1: lens, TOK_CHUNK: [max(lens)]}
+    for S, ls in shapes.items():
+        c = attn_case(torch, gen, dev, ls, S, 24, 2, 128, TOK_BLOCK, M,
+                      torch.bfloat16, nb=nb, C=TOK_CAPACITY)
+        kg, vg, pg = paged_gather_plain(c["kp"], c["vp"], c["ppos"], c["tbl"])
+        for name, (kern, plain) in attn_calls(c).items():
+            errs[name] = max(errs[name], max_err(kern(), plain(), tol=LOOSE))
+            paged = name.startswith("paged")
+            kv_pos = pg if paged else c["kv_pos"]
+            nbytes, flops, valid = attn_work(
+                torch, c["q"], c["q_pos"], kv_pos, 2,
+                table_bytes=c["tbl"].numel() * 4 if paged else 0)
+            kk, vv = (kg, vg) if paged else (c["k"], c["v"])
+            qT = c["q"].transpose(1, 2).contiguous()
+            kT = kk.transpose(1, 2).contiguous()
+            vT = vv.transpose(1, 2).contiguous()
+            mask = valid[:, None]
+            lib = (lambda qT=qT, kT=kT, vT=vT, mask=mask:
+                   F.scaled_dot_product_attention(qT, kT, vT, attn_mask=mask,
+                                                  enable_gqa=True))
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            rows[name] = {
+                "name": name, "route": "cuda", "source": ATTN_SOURCE,
+                "replaces": ATTN_REPLACES[name], "launches": 0,
+                "max_abs_err": 0.0, "ms": time_ms(kern),
+                "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": time_ms(lib),
+            }
+            r = rows[name]
+            print(f"kernel {name}: B={c['q'].shape[0]} S={S} cold L2: "
+                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+                  f"library (sdpa) {r['library_ms']:.4f} ms  bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+        print(f"kernel {name}: max_abs_err {errs[name]:.3g} over the edge "
+              f"and main-path shapes", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the token main path
+# ---------------------------------------------------------------------------
+
+
+def token_requests(Request, vocab, n, new, prompt, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt[0], prompt[1] + 1, n)
+    return [Request(rid=f"{'outer' if i % 2 == 0 else 'inner'}-{i:02d}",
+                    tokens=rng.integers(0, vocab, int(L)),
+                    max_new_tokens=new, priority=i % 2)
+            for i, L in enumerate(lens)]
+
+
+def serve(torch, cfg, params, reqs, *, paged, dev, slots, tracer=None):
+    """Drain ``reqs`` (fresh copies) through a ServeEngine; returns (engine,
+    finished, wall seconds, logits-finite flag)."""
+    import copy
+    from repro_torch.models.attention import RunOpts
+    from repro_torch.serving import ServeEngine
+    finite = []
+
+    def sample(logits):
+        finite.append(torch.isfinite(logits).all())
+        return torch.argmax(logits, dim=-1)
+
+    eng = ServeEngine(cfg, params, slots=slots, cache_capacity=TOK_CAPACITY,
+                      prefill_chunk=TOK_CHUNK, block_size=TOK_BLOCK,
+                      paged=paged, opts=RunOpts(use_kernels=True),
+                      sample=sample, device=dev)
+    if tracer is not None:
+        eng.attach_obs(tracer=tracer)
+    for r in reqs:
+        eng.submit(copy.deepcopy(r))
+    t0 = time.perf_counter()
+    done = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ok = bool(torch.stack(finite).all()) if finite else True
+    return eng, done, dt, ok
+
+
+def token_main_path(torch, dev, card):
+    """Phase 7.  Returns the launch counts of each layout's run."""
+    import numpy as np
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as TT
+    from repro_torch.obs.tracing import SpanTracer
+    from repro_torch.serving import Request
+    cfg = get_arch("starcoder2-3b")
+    total, _ = cfg.param_counts()
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator().manual_seed(TOK_SEED),
+                            device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"tokens: starcoder2-3b {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {total / 1e9:.3f} B parameters, "
+          f"{nbytes / 1e9:.2f} GB {cfg.param_dtype}, drawn on the host and "
+          f"moved in {time.perf_counter() - t0:.1f} s", flush=True)
+    reqs = token_requests(Request, cfg.vocab_size, TOK_REQUESTS, TOK_NEW,
+                          TOK_PROMPT, TOK_SEED)
+    warm = token_requests(Request, cfg.vocab_size, 2, 2, (33, 140), 99)
+    launches = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "contiguous"
+        serve(torch, cfg, params, warm, paged=paged, dev=dev,
+              slots=TOK_SLOTS)                       # cuBLAS/allocator warm-up
+        torch.cuda.empty_cache()
+        tracer = SpanTracer()
+        kops.reset_launches()
+        eng, done, dt, finite = serve(torch, cfg, params, reqs, paged=paged,
+                                      dev=dev, slots=TOK_SLOTS, tracer=tracer)
+        launches[layout] = kops.launches()
+        if len(done) != TOK_REQUESTS or any(len(r.generated) != TOK_NEW
+                                            for r in done):
+            fail(f"{layout}: not every request finished with {TOK_NEW} "
+                 f"tokens: {[(r.rid, len(r.generated)) for r in done]}")
+        eng.ledger.check()
+        if paged and eng.block_pool.used_blocks != 0:
+            fail(f"paged pool holds {eng.block_pool.used_blocks} blocks "
+                 f"after the drain")
+        if not finite:
+            fail(f"{layout}: non-finite logits")
+        need = ("paged_decode", "paged_flash") if paged else ("decode",
+                                                              "flash")
+        for name in need:
+            if launches[layout][name] == 0:
+                fail(f"{layout} token path never launched {name}")
+        dec = tracer.spans("decode")
+        pre = tracer.spans("prefill")
+        dec_s = sum(e["dur"] for e in dec) / 1e6
+        pre_s = sum(e["dur"] for e in pre) / 1e6
+        dec_tok = sum(e["args"]["n"] for e in dec)
+        pre_tok = sum(e["args"]["tokens"] for e in pre)
+        ttft = float(np.median([r.ttft_ms for r in done]))
+        print(f"tokens {layout}: {len(done)} requests, {pre_tok} prompt + "
+              f"{dec_tok + len(done)} generated tokens in {eng.ticks} ticks, "
+              f"{dt:.2f} s; decode {dec_s * 1e3 / len(dec):.3f} ms/tick, "
+              f"{dec_tok / dec_s:.1f} decode tokens/s, {pre_tok / pre_s:.1f} "
+              f"prefill tokens/s, median TTFT {ttft:.1f} ms on {card}; "
+              f"launches {launches[layout]}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def token_card_vs_cpu(torch, dev):
+    """Phase 8: full width, 2 layers, fp32; card (kernels) vs CPU (plain
+    versions), same weights, both layouts."""
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunOpts
+    from repro_torch.models.param import tree_to
+    from repro_torch.serving import Request
+    cfg = dataclasses.replace(get_arch("starcoder2-3b"), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    cpu_params = TT.init_params(cfg, torch.Generator().manual_seed(7),
+                                device="cpu")
+    card_params = tree_to(cpu_params, dev)
+    reqs = token_requests(Request, cfg.vocab_size, CPU_REQUESTS, CPU_NEW,
+                          CPU_PROMPT, 7)
+    opts = RunOpts(use_kernels=True)
+
+    def last_logits(params, seq, device):
+        toks = torch.as_tensor(seq, dtype=torch.long, device=device)[None]
+        logits, _, _ = TT.forward(cfg, params, toks, opts=opts)
+        return logits[0, -1].float().cpu()
+
+    worst = 0.0
+    for paged in (True, False):
+        layout = "paged" if paged else "contiguous"
+        t0 = time.perf_counter()
+        _, card_done, _, _ = serve(torch, cfg, card_params, reqs,
+                                   paged=paged, dev=dev, slots=CPU_REQUESTS)
+        _, cpu_done, _, _ = serve(torch, cfg, cpu_params, reqs, paged=paged,
+                                  dev=torch.device("cpu"),
+                                  slots=CPU_REQUESTS)
+        card_out = {r.rid: r.generated for r in card_done}
+        for r in cpu_done:
+            prompt = [int(t) for t in r.tokens]
+            a, b = card_out[r.rid], r.generated
+            if a != b:
+                i = next(j for j in range(len(b)) if a[j] != b[j])
+                top = torch.topk(last_logits(cpu_params, prompt + b[:i],
+                                             "cpu"), 2).values
+                margin = float(top[0] - top[1])
+                if margin >= TOKEN_TOL:
+                    fail(f"{layout} {r.rid}: card and CPU streams part at "
+                         f"token {i} where the CPU's top-two margin is "
+                         f"{margin:.3g} >= {TOKEN_TOL}")
+                print(f"tok/CPU {layout} {r.rid}: streams part at token {i}, "
+                      f"CPU top-two margin {margin:.3g} < {TOKEN_TOL}",
+                      flush=True)
+            seq = prompt + b[:-1]
+            d = float((last_logits(card_params, seq, dev)
+                       - last_logits(cpu_params, seq, "cpu")).abs().max())
+            worst = max(worst, d)
+            if d > TOKEN_TOL:
+                fail(f"{layout} {r.rid}: teacher-forced logits differ by "
+                     f"{d:.3g} > {TOKEN_TOL}")
+        print(f"tok/CPU {layout}: {len(cpu_done)} requests, streams "
+              f"{'equal' if all(card_out[r.rid] == r.generated for r in cpu_done) else 'part (see above)'}"
+              f", max |card - CPU| teacher-forced logit {worst:.3g} "
+              f"(tol {TOKEN_TOL}); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -314,20 +747,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print("numerics: TF32 off for cuDNN convolutions and matmuls", flush=True)
 
-    # ---- phase 1: build -------------------------------------------------
+    # ---- phase 1: build (one nvcc per source, all started together) -----
     card = card_line()
-    t0 = time.perf_counter()
-    lib = build.build("vision_ops")
-    print(f"build: vision_ops.cu in {time.perf_counter() - t0:.1f} s "
-          f"on {card}", flush=True)
-    log = lib.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip(), flush=True)
+    t_run = t_phase = time.perf_counter()
+
+    def timed_build(name):
+        t0 = time.perf_counter()
+        return build.build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = dict(zip(("vision_ops", "attention"),
+                         pool.map(timed_build, ("vision_ops", "attention"))))
+    for name, (lib, secs) in built.items():
+        print(f"build: {name}.cu in {secs:.1f} s on {card}", flush=True)
+        log = lib.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    def phase_done(n, what):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {n} ({what}): {now - t_phase:.1f} s wall", flush=True)
+        t_phase = now
+
+    phase_done(1, "build")
+
     # ---- phase 2: kernels vs plain --------------------------------------
     rows = check_kernels(torch, vo, dev)
+    phase_done(2, "vision kernels")
 
     # ---- phase 3: the main path ------------------------------------------
     common = dict(slots=SLOTS, frame_res=FRAME_RES, input_res=INPUT_RES,
@@ -372,6 +821,8 @@ def main() -> int:
               f"{processed / dt:.1f} processed frames/s, "
               f"{dt * 1e3 / tk:.3f} ms/tick on {card}", flush=True)
 
+    phase_done(3, "vision main path")
+
     # ---- phase 4: the other kernel paths -----------------------------------
     side = feed(frame_loop, (OUTER, INNER), 8, 8)
     gateless = VisionServeEngine("gateless", use_kernels=True, use_gate=False,
@@ -394,6 +845,8 @@ def main() -> int:
     rows["block_sad"]["launches"] = vo.LAUNCHES["block_sad"]
     print(f"MotionGate.admit path: launches {dict(vo.LAUNCHES)}", flush=True)
 
+    phase_done(4, "vision kernel paths")
+
     # ---- phase 5: the main path on the CPU, same weights and frames -------
     cpu = VisionServeEngine("cpu", use_kernels=True, device="cpu",
                             params=(warm.dp, warm.pp), **common)
@@ -404,6 +857,23 @@ def main() -> int:
         fail(f"card and CPU disagree on streams {diff[:8]}")
     print(f"card vs CPU: {len(card_out)} streams agree on counts and flags "
           f"(CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_done(5, "vision card vs CPU")
+
+    # ---- phase 6: attention kernels vs plain -------------------------------
+    rows.update(check_attention(torch, dev))
+    phase_done(6, "attention kernels")
+
+    # ---- phase 7: the token main path, both KV layouts ---------------------
+    tok = token_main_path(torch, dev, card)
+    for name in ATTN_REPLACES:
+        layout = "paged" if name.startswith("paged") else "contiguous"
+        rows[name]["launches"] = tok[layout][name]
+    phase_done(7, "token main path")
+
+    # ---- phase 8: the token path on the card vs the CPU --------------------
+    token_card_vs_cpu(torch, dev)
+    phase_done(8, "token card vs CPU")
+    print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -1,20 +1,28 @@
-"""PyTorch + CUDA port of the EDA fleet vision-serving stack.
+"""PyTorch + CUDA port of the EDA fleet serving stack.
 
 Mirrors ``src/repro/`` module for module; the JAX package stays the
 reference it is held against.  This package imports torch, numpy and the
 standard library only — never JAX and never the reference package.
 
-Ported so far (the vision main path, push -> ledger record):
+Ported so far — the vision main path (push -> ledger record) and the
+token path (request -> chunked prefill -> decode -> ledger record):
 
-  config / configs.eda_vision   EDAConfig, VisionConfig
+  config / configs              EDAConfig, VisionConfig, ModelConfig and
+                                the arch registry (starcoder2-3b)
   core                          clock, early_stop, telemetry, engine_core
   obs                           sketch, metrics, tracing
   events.envelope               event taxonomy
-  models                        param descriptors, detector/pose CNNs
-  kernels.vision_ops            hand-written CUDA (sm_90a) ingest,
-                                scatter-admit, downscale and block-SAD
-                                kernels, each beside its plain version
+  models                        param descriptors, detector/pose CNNs,
+                                layers, attention (contiguous and paged
+                                KV), pure-attention transformer
+  kernels                       hand-written CUDA (sm_90a) kernels, each
+                                beside its plain version: ingest,
+                                scatter-admit, downscale, block-SAD; paged
+                                decode, paged flash, flash, decode
   streams                       MotionGate, tiers, VisionServeEngine
+  serving                       ServeEngine (the token workload shell)
+  launch.serve                  the serving CLI
   data.synthetic                deterministic dash-cam clips
-  convert                       reference parameter trees -> port weights
+  convert                       reference parameter trees and caches ->
+                                port tensors
 """

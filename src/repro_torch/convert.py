@@ -1,11 +1,18 @@
-"""Reference parameter trees -> the port's weights.
+"""Reference parameter trees (and caches) -> the port's tensors.
 
-The reference keeps its convolution weights in HWIO layout
+Vision models: the reference keeps its convolution weights in HWIO layout
 ``(kh, kw, cin, cout)`` (depthwise ``(kh, kw, 1, c)``); the port keeps
 PyTorch's OIHW ``(cout, cin, kh, kw)`` (depthwise ``(c, 1, kh, kw)``), the
 same ``permute(3, 2, 0, 1)`` for both.  Inputs are trees of numpy arrays
 (``np.asarray`` of the reference's leaves), so this module needs nothing of
 the reference package; the parity tests and any checkpoint loader use it.
+
+Transformers: the reference groups layers into segments run by
+``lax.scan``, each leaf of a repeated segment stacked with a leading layer
+axis (``models/transformer.py`` ``plan_layers``/``model_param_tree``).
+The port keeps one parameter dict per layer and one cache dict per layer,
+so :func:`transformer_from_jax` and :func:`caches_from_jax` unstack.
+Weights keep their ``(d_in, d_out)`` layout: no transpose.
 """
 from __future__ import annotations
 
@@ -14,7 +21,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import plan_layers
 from repro_torch.models.vision import from_hwio
 
 
@@ -34,3 +43,40 @@ def detector_from_jax(np_tree: dict, device=None) -> dict:
 def pose_from_jax(np_tree: dict, device=None) -> dict:
     """Pose parameters, same layout rule as :func:`detector_from_jax`."""
     return from_hwio(_tensors(np_tree, resolve_device(device)))
+
+
+def _unstack(segments: list, cfg: ModelConfig) -> list:
+    """The reference's segment list -> one tree per layer, in order."""
+    layers = []
+    for (sig, repeats), seg in zip(plan_layers(cfg), segments):
+        for r in range(repeats):
+            for j in range(len(sig)):
+                tree = seg[f"b{j}"]
+                layers.append(_index(tree, r) if repeats > 1 else tree)
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers unstacked, config has "
+                         f"{cfg.num_layers}")
+    return layers
+
+
+def _index(tree: Any, r: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def transformer_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """Reference transformer parameters (numpy leaves, scanned segments)
+    -> ``{"embed", "final_norm", "layers": [per layer]}`` on ``device``."""
+    dev = resolve_device(device)
+    return {"embed": _tensors(np_tree["embed"], dev),
+            "final_norm": _tensors(np_tree["final_norm"], dev),
+            "layers": [_tensors(t, dev)
+                       for t in _unstack(np_tree["segments"], cfg)]}
+
+
+def caches_from_jax(np_caches: list, cfg: ModelConfig, device=None) -> list:
+    """Reference caches (numpy leaves, one entry per segment: contiguous
+    rings or paged pools) -> the port's list of per-layer cache dicts."""
+    dev = resolve_device(device)
+    return [_tensors(t, dev) for t in _unstack(np_caches, cfg)]

@@ -3,7 +3,11 @@ version.
 
 ``vision_ops`` ports the reference's frame-ingest Pallas suite
 (``ingest_frame``, ``scatter_admit``, ``downscale``, ``block_sad``) from
-``csrc/vision_ops.cu``; ``build`` compiles a ``csrc`` source with ``nvcc``
-at first use and loads it with ``ctypes``.  The attention, RG-LRU and
-mLSTM kernels of the reference are not ported yet (``ROADMAP.md``).
+``csrc/vision_ops.cu``.  ``paged_attention``, ``flash_attention`` and
+``decode_attention`` port its four attention kernels from
+``csrc/attention.cu`` (shared pieces in ``attention_common``), and ``ops``
+routes the model's calls to them as the reference's ``kernels/ops.py``
+does.  ``build`` compiles a ``csrc`` source with ``nvcc`` at first use and
+loads it with ``ctypes``.  The RG-LRU and mLSTM kernels of the reference
+are not ported yet (``ROADMAP.md``).
 """

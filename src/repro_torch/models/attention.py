@@ -1,0 +1,319 @@
+"""GQA attention (full / causal / sliding-window) and its KV caches.
+
+Counterpart of the reference's ``models/attention.py``.  Caches store
+explicit key positions (``pos``/``ppos``, -1 = empty) so ring-buffer
+sliding-window caches, padded caches and recycled pool blocks mask
+correctly without host bookkeeping.
+
+Two layouts:
+
+  * contiguous: per-row rings ``k/v (B, cap, Hkv, D)``, ``pos (B, cap)``;
+  * paged: one pool shared by every row, ``kp/vp (nb, bs, Hkv, D)``,
+    ``ppos (nb, bs)``, read and written through a block table
+    ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}``.
+
+Where the port departs from the reference's array semantics:
+
+  * Caches are written IN PLACE (the reference's arrays are immutable and
+    every write returns a new cache).  ``_write_cache``'s per-row decode
+    path writes one entry per row where the reference rewrites the whole
+    cache through a one-hot mask; the result is the same.
+  * The reference's scatters use ``mode="drop"``: an out-of-range index
+    (position < 0, a -1 table column, the ``nb`` sentinel of a reset) is
+    skipped silently.  ``torch`` raises on such an index, so the port masks
+    those entries out before it writes.
+  * ``dynamic_update_slice`` clamps its start to ``cap - S``; the port's
+    chunk write clamps the same way.
+
+Only the options the token path reads are ported: ``RunOpts.use_kernels``.
+The reference's ``interpret``, ``remat``, ``block_kv``, ``unroll_scan``,
+``attn_specs`` and ``mxu_bf16`` (with ``blocked_dot_attention`` and the
+cross-attention functions) wait for the slices that need them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.attention_common import paged_gather_plain
+from repro_torch.models.layers import apply_rope, dense, dense_params
+
+NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class RunOpts:
+    """Runtime options threaded through model apply functions."""
+    use_kernels: bool = False     # hand-written CUDA kernels (plain on CPU)
+
+
+DEFAULT_OPTS = RunOpts()
+
+
+def _window(cfg: ModelConfig) -> int:
+    return cfg.window if cfg.attention == "sliding" else 0
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def attn_params(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "wq": dense_params(d, cfg.q_dim, "embed", "heads", cfg.qkv_bias),
+        "wk": dense_params(d, cfg.kv_dim, "embed", "kv_heads", cfg.qkv_bias),
+        "wv": dense_params(d, cfg.kv_dim, "embed", "kv_heads", cfg.qkv_bias),
+        "wo": dense_params(cfg.q_dim, d, "heads", "embed", cfg.o_bias),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, capacity: int,
+                 dtype: Optional[str] = None) -> dict:
+    """{name: (shape, dtype)} of one layer's contiguous ring (a sliding
+    window clips the capacity to the window)."""
+    dt = getattr(torch, dtype or cfg.compute_dtype)
+    if cfg.attention == "sliding" and cfg.window:
+        capacity = min(capacity, cfg.window)
+    kv = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (kv, dt), "v": (kv, dt), "pos": ((batch, capacity), torch.int32)}
+
+
+def paged_cache_shapes(cfg: ModelConfig, num_blocks: int, block_size: int,
+                       dtype: Optional[str] = None) -> dict:
+    """{name: (shape, dtype)} of one layer's shared block pool: no batch
+    dim; the per-request mapping lives in the engine's block table."""
+    dt = getattr(torch, dtype or cfg.compute_dtype)
+    kv = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return {"kp": (kv, dt), "vp": (kv, dt),
+            "ppos": ((num_blocks, block_size), torch.int32)}
+
+
+def _materialize(shapes: dict, device) -> dict:
+    """Zeros, and -1 (empty) for the int32 position leaves."""
+    return {k: (torch.full(s, -1, dtype=dt, device=device)
+                if dt == torch.int32 else
+                torch.zeros(s, dtype=dt, device=device))
+            for k, (s, dt) in shapes.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype: Optional[str] = None, device=None) -> dict:
+    """One layer's empty contiguous ring, on the card unless ``device``
+    says otherwise."""
+    return _materialize(cache_shapes(cfg, batch, capacity, dtype),
+                        resolve_device(device))
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype: Optional[str] = None, device=None) -> dict:
+    """One layer's empty block pool, on the card unless ``device`` says
+    otherwise."""
+    return _materialize(paged_cache_shapes(cfg, num_blocks, block_size, dtype),
+                        resolve_device(device))
+
+
+def paged_write_plan(positions: torch.Tensor, pages: dict, num_blocks: int,
+                     block_size: int) -> dict:
+    """Where ``paged_write`` lands: the same for every layer of one
+    forward, so the model computes it once.
+
+    Returns ``{"reset": block ids to invalidate, "src": kept entries of the
+    flattened (B*S) new K/V, "dst": their flat pool indices}``.  Position p
+    of row b lands in column ``(p // bs) % len[b]`` (the block-granular
+    ring).  Entries the reference drops — position < 0, a -1 table column —
+    are left out here."""
+    bs = block_size
+    tbl = pages["tbl"].long()
+    own = (tbl >= 0) & (pages["reset"].long()[:, None] > 0)
+    pos = positions.long()
+    ring = pages["len"].long().clamp(min=1)[:, None]
+    col = torch.div(pos, bs, rounding_mode="floor") % ring          # (B,S)
+    blk = torch.gather(tbl, 1, col)                                 # (B,S)
+    flat = (blk * bs + pos % bs).reshape(-1)
+    ok = ((pos >= 0) & (blk >= 0)).reshape(-1)
+    src = torch.nonzero(ok).reshape(-1)
+    return {"reset": tbl[own], "src": src, "dst": flat[src]}
+
+
+def paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                positions: torch.Tensor, pages: dict) -> dict:
+    """Scatter S new entries per row into the pool through the block table,
+    in place.  A row with ``reset > 0`` first invalidates every entry of
+    its own blocks (recycled blocks carry the previous owner's positions).
+    ``pages["plan"]`` (from :func:`paged_write_plan`) is used when given."""
+    kp, vp, pp = cache["kp"], cache["vp"], cache["ppos"]
+    nb, bs = kp.shape[0], kp.shape[1]
+    plan = pages.get("plan")
+    if plan is None:
+        plan = paged_write_plan(positions, pages, nb, bs)
+    pp[plan["reset"]] = -1
+    feat = kp.shape[2:]
+    src, dst = plan["src"], plan["dst"]
+    kp.view((nb * bs,) + feat)[dst] = k.reshape((-1,) + feat)[src].to(kp.dtype)
+    vp.view((nb * bs,) + feat)[dst] = v.reshape((-1,) + feat)[src].to(vp.dtype)
+    pp.view(-1)[dst] = positions.reshape(-1)[src].to(torch.int32)
+    return cache
+
+
+def paged_gather(cache: dict, pages: dict):
+    """Plain read: materialise (B, M*bs) logical KV + positions from the
+    pool (the kernels read the pool in place instead)."""
+    return paged_gather_plain(cache["kp"], cache["vp"], cache["ppos"],
+                              pages["tbl"])
+
+
+def _write_cache(cfg: ModelConfig, cache: dict, k: torch.Tensor,
+                 v: torch.Tensor, positions: torch.Tensor, cache_index) -> dict:
+    """Write S new entries at ring offset ``cache_index``, in place.
+
+    A per-row ``cache_index`` tensor (continuous batching, S == 1) writes
+    one entry per row at ``cache_index[b] % cap``.  A scalar writes the
+    chunk at ``cache_index % cap``, its start clamped to ``cap - S`` as
+    ``dynamic_update_slice`` clamps (the engine's descending power-of-two
+    chunks never need the clamp)."""
+    cap = cache["k"].shape[1]
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        if k.shape[1] != 1:
+            raise ValueError(f"per-row cache_index needs S == 1, got {k.shape[1]}")
+        rows = torch.arange(k.shape[0], device=k.device)
+        idx = cache_index.long() % cap
+        cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][rows, idx] = positions[:, 0].to(torch.int32)
+        return cache
+    S = k.shape[1]
+    start = min(max(int(cache_index) % cap, 0), cap - S)
+    cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
+    cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
+    cache["pos"][:, start:start + S] = positions.to(torch.int32)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                  causal: bool, window: int = 0,
+                  opts: RunOpts = DEFAULT_OPTS) -> torch.Tensor:
+    """q (B,S,Hq,D); k/v (B,C,Hkv,D); *_pos (B,S)/(B,C) absolute positions.
+    Returns (B,S,Hq,D).
+
+    The plain path is the reference's ``dot_attention``: a row with no
+    valid key softmaxes its NEG_INF scores to UNIFORM weights.  The
+    kernels (``use_kernels``) give 0 for such a row, as the reference's
+    kernels do; only rows of retired slots are ever fully masked."""
+    if opts.use_kernels:
+        return kops.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                    window=window)
+    B, S, Hq, D = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, D)
+    scores = torch.einsum("bskgd,bckd->bskgc", qg.float(), k.float())
+    scores = scores / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
+    kv_pos, q_pos = kv_pos.long(), q_pos.long()
+    valid = (kv_pos[:, None, :] >= 0).expand(B, S, C)
+    if causal:
+        valid = valid & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        valid = valid & ((q_pos[:, :, None] - kv_pos[:, None, :]) < window)
+    mask = valid[:, :, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bskgc,bckd->bskgd", w, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+
+def make_filled_cache(cfg: ModelConfig, k, v, positions, capacity: int):
+    """A ring-consistent cache (slot == pos % cap) from prefill K/V; extra
+    slots are empty (pos = -1) headroom for decode."""
+    B, S = positions.shape
+    window = _window(cfg)
+    cap = min(window, capacity) if window else capacity
+    dt = getattr(torch, cfg.compute_dtype)
+    if S >= cap:
+        shift = int(positions[0, -1] + 1) % cap
+        ck = torch.roll(k[:, -cap:], shift, dims=1)
+        cv = torch.roll(v[:, -cap:], shift, dims=1)
+        cp = torch.roll(positions[:, -cap:], shift, dims=1)
+    else:
+        pad = cap - S
+        ck = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        cv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        cp = torch.nn.functional.pad(positions, (0, pad), value=-1)
+    return {"k": ck.to(dt), "v": cv.to(dt), "pos": cp.to(torch.int32)}
+
+
+def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+               positions: torch.Tensor,
+               cache: Optional[dict] = None,
+               cache_index=None,
+               causal: bool = True,
+               fill_cache: bool = False,
+               cache_capacity: Optional[int] = None,
+               pages: Optional[dict] = None,
+               opts: RunOpts = DEFAULT_OPTS):
+    """Self-attention.  Returns (y, new_cache).
+
+    - train:   cache=None, fill_cache=False
+    - prefill: cache=None, fill_cache=True  (cache built from k/v)
+    - decode:  cache given, cache_index = current write offset
+    - paged:   cache is a block pool ({"kp","vp","ppos"}), ``pages`` carries
+      the block table; write columns derive from absolute positions
+    """
+    B, S, _ = x.shape
+    q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    window = _window(cfg)
+    new_cache = None
+    if cache is not None and "kp" in cache:
+        if pages is None:
+            raise ValueError("paged cache given without a block table "
+                             "(pages=None)")
+        new_cache = paged_write(cache, k, v, positions, pages)
+        if opts.use_kernels:
+            out = kops.paged_attention(
+                q, new_cache["kp"], new_cache["vp"], new_cache["ppos"],
+                pages["tbl"], positions, causal=causal, window=window)
+        else:
+            kg, vg, pg = paged_gather(new_cache, pages)
+            out = dot_attention(q, kg, vg, positions, pg, causal=causal,
+                                window=window, opts=opts)
+    elif cache is not None:
+        new_cache = _write_cache(cfg, cache, k, v, positions, cache_index)
+        out = dot_attention(q, new_cache["k"], new_cache["v"],
+                            positions, new_cache["pos"],
+                            causal=causal, window=window, opts=opts)
+    else:
+        out = dot_attention(q, k, v, positions, positions,
+                            causal=causal, window=window, opts=opts)
+        if fill_cache:
+            new_cache = make_filled_cache(cfg, k, v, positions,
+                                          cache_capacity or S + 64)
+    y = dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+    return y, new_cache

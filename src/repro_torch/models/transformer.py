@@ -1,0 +1,237 @@
+"""Model assembly for pure-attention stacks: params, caches, forward.
+
+Counterpart of the reference's ``models/transformer.py``, for the
+architectures whose every layer is plain attention (GQA, full or sliding
+window) with a dense MLP — ``starcoder2-3b`` among the ported configs.
+The reference groups layers into scanned segments of stacked parameters
+(``plan_layers``); the port runs its layers as a Python loop over
+per-layer parameter dicts (``params["layers"]``) and per-layer cache dicts
+(a list), with nothing stacked.  ``convert.transformer_from_jax`` unstacks
+a reference tree into this layout.
+
+MoE, MLA, the recurrent block kinds (RG-LRU, mLSTM, sLSTM), encoder-
+decoder and VLM families raise ``NotImplementedError``: they come with
+``ROADMAP.md`` queue 1, item 11.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from repro_torch.config import ATTN, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
+from repro_torch.models.layers import (apply_mlp, apply_norm, embed_params,
+                                       embed_tokens, mlp_params, norm_params,
+                                       unembed)
+from repro_torch.models.param import init_tree
+
+# ---------------------------------------------------------------------------
+# Layer planning
+# ---------------------------------------------------------------------------
+
+
+def _layer_sigs(cfg: ModelConfig):
+    sigs = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        moe_flag = (cfg.moe.enabled and kind == ATTN
+                    and i >= cfg.moe.first_dense_layers)
+        sigs.append((kind, moe_flag))
+    return sigs
+
+
+def plan_layers(cfg: ModelConfig):
+    """The reference's segment plan: list of (period_sigs, repeats).  The
+    port's forward does not use it; ``convert`` reads the reference's
+    stacked parameter and cache trees with it."""
+    sigs = _layer_sigs(cfg)
+    if cfg.unroll_layers:
+        return [((s,), 1) for s in sigs]
+    segments = []
+    i = 0
+    while i < len(sigs):
+        best_period, best_repeats = 1, 1
+        for period in range(1, min(8, len(sigs) - i) + 1):
+            pat = sigs[i: i + period]
+            r = 1
+            while sigs[i + r * period: i + (r + 1) * period] == pat:
+                r += 1
+            if (r * period > best_period * best_repeats
+                    or (r * period == best_period * best_repeats
+                        and period < best_period)):
+                best_period, best_repeats = period, r
+        segments.append((tuple(sigs[i: i + best_period]), best_repeats))
+        i += best_period * best_repeats
+    return segments
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run yet."""
+    kinds = set(cfg.layer_kinds())
+    if (kinds != {ATTN} or cfg.moe.enabled or cfg.attention == "mla"
+            or cfg.family in ("encdec", "vlm")):
+        raise NotImplementedError(
+            f"arch {cfg.name!r} (family {cfg.family!r}, layers "
+            f"{sorted(kinds)}, attention {cfg.attention!r}, MoE "
+            f"{cfg.moe.enabled}) is not ported yet: only pure-attention "
+            f"dense stacks run; the others come with ROADMAP.md queue 1, "
+            f"item 11")
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def _block_params(cfg: ModelConfig) -> dict:
+    p = {"ln1": norm_params(cfg), "attn": attn_mod.attn_params(cfg)}
+    if cfg.d_ff > 0:
+        if not cfg.parallel_block:
+            p["ln2"] = norm_params(cfg)
+        p["mlp"] = mlp_params(cfg)
+    return p
+
+
+def model_param_tree(cfg: ModelConfig) -> dict:
+    """Descriptor tree: ``{"embed", "final_norm", "layers": [per layer]}``."""
+    check_supported(cfg)
+    return {"embed": embed_params(cfg), "final_norm": norm_params(cfg),
+            "layers": [_block_params(cfg) for _ in range(cfg.num_layers)]}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random weights from ``generator``'s seed, on the card unless
+    ``device="cpu"``.  Each leaf is drawn on the host and then moved
+    (``param.init_tree``), so a seed gives the same weights on every
+    device."""
+    return init_tree(model_param_tree(cfg), generator, cfg.param_dtype,
+                     resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Caches (a list of per-layer dicts)
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, capacity: int,
+                device=None) -> List[dict]:
+    """Empty contiguous (per-slot ring) caches, one dict per layer."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [attn_mod.init_cache(cfg, batch, capacity, device=dev)
+            for _ in range(cfg.num_layers)]
+
+
+def paged_eligible(cfg: ModelConfig) -> bool:
+    """Paged KV needs every layer to be plain attention with a standard
+    K/V cache: no MLA, no recurrent state, no encoder-decoder cross-K/V."""
+    return (all(kind == ATTN for kind in cfg.layer_kinds())
+            and cfg.attention in ("full", "sliding")
+            and cfg.family != "encdec")
+
+
+def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
+                      device=None) -> List[dict]:
+    """Empty paged caches (all blocks free, ``ppos`` -1), one pool per
+    layer."""
+    if not paged_eligible(cfg):
+        raise ValueError(f"paged KV cache unsupported for arch "
+                         f"{cfg.name!r} (layers {cfg.layer_kinds()}, "
+                         f"attention {cfg.attention!r}, family "
+                         f"{cfg.family!r})")
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [attn_mod.init_paged_cache(cfg, num_blocks, block_size, device=dev)
+            for _ in range(cfg.num_layers)]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
+                 cache, cache_index, fill_cache, cache_capacity, pages,
+                 opts: RunOpts):
+    """One attention block.  Returns (x, new_cache)."""
+    xn = apply_norm(cfg, p["ln1"], x)
+    a_out, ncache = attn_mod.attn_apply(
+        cfg, p["attn"], xn, positions=positions, cache=cache,
+        cache_index=cache_index, causal=True, fill_cache=fill_cache,
+        cache_capacity=cache_capacity, pages=pages, opts=opts)
+    has_mlp = cfg.d_ff > 0
+    if cfg.parallel_block and has_mlp:
+        x = x + a_out + apply_mlp(cfg, p["mlp"], xn)
+    else:
+        x = x + a_out
+        if has_mlp:
+            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return x, ncache
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[list] = None,
+            cache_index=None,
+            fill_cache: bool = False,
+            cache_capacity: Optional[int] = None,
+            last_only: bool = False,
+            pages: Optional[dict] = None,
+            opts: RunOpts = DEFAULT_OPTS):
+    """Returns (logits, new_caches, aux).
+
+    ``caches`` is a list of per-layer dicts (contiguous rings, or paged
+    pools with ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}``); they
+    are updated in place and returned.  ``aux`` is the reference's MoE
+    auxiliary loss, always 0 here."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+    if pages is not None and caches is not None:
+        # where the new K/V land is the same for every layer
+        kp = caches[0]["kp"]
+        pages = dict(pages, plan=attn_mod.paged_write_plan(
+            positions, pages, kp.shape[0], kp.shape[1]))
+    x = embed_tokens(cfg, params["embed"], tokens)
+    want_cache = caches is not None or fill_cache
+    new_caches: Optional[list] = [] if want_cache else None
+    for i, p in enumerate(params["layers"]):
+        x, nc = _apply_block(
+            cfg, p, x, positions=positions,
+            cache=caches[i] if caches is not None else None,
+            cache_index=cache_index, fill_cache=fill_cache,
+            cache_capacity=cache_capacity, pages=pages, opts=opts)
+        if want_cache:
+            new_caches.append(nc)
+    x = apply_norm(cfg, params["final_norm"], x)
+    if last_only:
+        x = x[:, -1:]
+    logits = unembed(cfg, params["embed"], x)
+    return logits, new_caches, torch.zeros((), device=x.device)
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            cache_capacity: Optional[int] = None,
+            opts: RunOpts = DEFAULT_OPTS):
+    """Returns (last_logits (B,1,V), caches)."""
+    logits, caches, _ = forward(cfg, params, tokens, fill_cache=True,
+                                cache_capacity=cache_capacity,
+                                last_only=True, opts=opts)
+    return logits, caches
+
+
+def decode_step(cfg: ModelConfig, params: dict, caches: list,
+                tokens: torch.Tensor, index, opts: RunOpts = DEFAULT_OPTS):
+    """One decode step.  tokens: (B,1); index: scalar position.  Returns
+    (logits (B,1,V), caches)."""
+    B = tokens.shape[0]
+    positions = torch.full((B, 1), int(index), dtype=torch.int32,
+                           device=tokens.device)
+    logits, new_caches, _ = forward(cfg, params, tokens, positions=positions,
+                                    caches=caches, cache_index=index,
+                                    opts=opts)
+    return logits, new_caches

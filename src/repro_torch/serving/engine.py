@@ -1,0 +1,503 @@
+"""Continuous-batching LM serving engine with the paper's deadline policy.
+
+Counterpart of the reference's ``serving/engine.py``: a chunked-prefill-
+and-decode workload shell over the shared :class:`EngineCore` (the same
+substrate the vision engine rides).  The engine owns ``slots`` decode lanes
+(slot = one request's KV cache row).  Each request is
+
+  1. *segmented* — its prompt is prefilled in descending power-of-two
+     chunks (the paper's segmentation as chunked prefill),
+  2. *admitted* — written into a free slot's cache (contiguous: the 1-row
+     prefill cache is copied in place with ``insert_row``; paged: the
+     chunks write straight into the shared pool through the slot's table
+     row),
+  3. *decoded* — one token per engine tick for every active slot,
+  4. *early-stopped* — a token budget derived from its deadline through
+     the core's ESD policy at the engine's EWMA per-tick cost,
+  5. *ledgered* — closed into a ``telemetry.SegmentRecord``.
+
+Priority classes mirror outer/inner: ``priority=0`` (hazard) requests jump
+the admission queue of ``priority=1`` (distraction) requests, with a
+bounded-bypass aging pop.  Timing flows through the ``core.clock`` seam:
+decode ticks charge ``TOKEN`` work and prefill chunks ``PREFILL`` work, so
+under a ``VirtualClock`` turnaround and TTFT are deterministic.
+
+KV layout: contiguous per-slot rings (``paged=False``) or the paged block
+pool (the default wherever ``transformer.paged_eligible`` holds), with a
+host-side :class:`BlockPool` and a per-slot block table; a sliding-window
+arch rings at block granularity, ``ceil((window-1)/bs) + 1`` columns.
+
+The reference compiles four jitted dispatch functions, shared by every
+engine of one (cfg, opts, sample); PyTorch runs eagerly, so here they are
+plain closures (:func:`dispatch_fns`).  Sampling stays inside them: one
+host fetch of the sampled ids per tick.  The reference's
+``jit_cache_entries`` waits for the simulator slice (``ROADMAP.md``).
+
+On the card, attention runs through the hand-written kernels when
+``opts.use_kernels`` is set; inactive slots are mirrored exactly: they keep
+advancing ``slot_pos`` and (contiguous) writing their own row, which
+``insert_row`` overwrites at the next admission.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import EDAConfig, ModelConfig
+from repro_torch.core.clock import PREFILL, TOKEN, Clock
+from repro_torch.core.engine_core import (INNER, OUTER, BlockPool,
+                                          BlockPoolExhausted, EngineCore,
+                                          LanePool, PriorityQueue, insert_row)
+from repro_torch.core.telemetry import Ledger, SegmentRecord
+from repro_torch.device import resolve_device
+from repro_torch.events.envelope import DEADLINE_MISS, TOKEN_DONE
+from repro_torch.models import transformer as T
+from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
+
+
+@dataclass
+class Request:
+    rid: str
+    tokens: Any                      # (S,) int prompt
+    max_new_tokens: int
+    priority: int = 1                # 0 = outer/hazard class
+    deadline_ms: float = 0.0         # 0 = no deadline (no early stop)
+    # stamped by the engine at submit() from the ENGINE's clock
+    arrival_s: float = 0.0
+    # filled by the engine:
+    generated: List[int] = field(default_factory=list)
+    prefill_done_s: float = 0.0
+    finish_s: float = 0.0
+    processing_ms: float = 0.0
+    truncated: bool = False
+    prompt_truncated: bool = False   # prompt clipped to the cache ring
+    # LanePool binding protocol (slot = decode lane while active)
+    lane: int = -1
+    bound_seq: int = -1
+
+    @property
+    def ttft_ms(self) -> float:
+        return (self.prefill_done_s - self.arrival_s) * 1000.0
+
+    @property
+    def turnaround_ms(self) -> float:
+        return (self.finish_s - self.arrival_s) * 1000.0
+
+    @property
+    def skip_rate(self) -> float:
+        if self.max_new_tokens == 0:
+            return 0.0
+        return 1.0 - len(self.generated) / self.max_new_tokens
+
+
+def _argmax_sample(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy; ties take the first index, as ``jnp.argmax``."""
+    return torch.argmax(logits, dim=-1)
+
+
+def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
+                 sample: Callable) -> Dict[str, Callable]:
+    """The four serving dispatch functions, closing over (cfg, opts,
+    sample); each returns sampled token ids, not logits."""
+    def prefill_chunk(params, caches, tokens, positions, start):
+        # contiguous: one chunk of a single-row prompt at ring offset start
+        logits, caches, _ = T.forward(cfg, params, tokens,
+                                      positions=positions, caches=caches,
+                                      cache_index=start, opts=opts)
+        return sample(logits[0, -1]), caches
+
+    def decode(params, caches, tokens, positions):
+        # contiguous: one decode tick for all slots; per-slot ring indices
+        logits, caches, _ = T.forward(cfg, params, tokens,
+                                      positions=positions[:, None],
+                                      caches=caches, cache_index=positions,
+                                      opts=opts)
+        return sample(logits[:, -1]), caches
+
+    def paged_prefill_chunk(params, caches, tokens, positions, tbl, tlen,
+                            reset):
+        # paged: the chunk writes into the SHARED pool through this slot's
+        # table row (B = 1); reset > 0 on the first chunk invalidates
+        # recycled blocks' stale positions
+        pages = {"tbl": tbl, "len": tlen, "reset": reset}
+        logits, caches, _ = T.forward(cfg, params, tokens,
+                                      positions=positions, caches=caches,
+                                      pages=pages, opts=opts)
+        return sample(logits[0, -1]), caches
+
+    def paged_decode(params, caches, tokens, positions, tbl, tlen):
+        # paged: all slots through the full block table; retired rows are
+        # all -1 (writes dropped, attention fully masked)
+        pages = {"tbl": tbl, "len": tlen, "reset": torch.zeros_like(tlen)}
+        logits, caches, _ = T.forward(cfg, params, tokens,
+                                      positions=positions[:, None],
+                                      caches=caches, pages=pages, opts=opts)
+        return sample(logits[:, -1]), caches
+
+    return {"prefill": prefill_chunk, "decode": decode,
+            "paged_prefill": paged_prefill_chunk,
+            "paged_decode": paged_decode}
+
+
+class ServeEngine(EngineCore):
+    """Continuous-batching token server (chunked-prefill-and-decode shell).
+
+    ``paged``: ``None`` (default) takes the paged block pool wherever the
+    arch is eligible, else contiguous rings; ``True`` requires eligibility;
+    ``False`` forces contiguous.  ``block_size`` is the KV entries per
+    block, ``num_blocks`` the pool size (default: every slot's worst case,
+    so admission never backpressures).  ``overflow``: a prompt longer than
+    ``cache_capacity - 1`` raises at :meth:`submit` (``"reject"``) or is
+    clipped to its last ``cache_capacity - 1`` tokens (``"truncate"``).
+
+    ``params`` are the port's tensors (``transformer.init_params`` or
+    ``convert.transformer_from_jax``) on ``device`` — the card unless
+    ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
+                 cache_capacity: int = 512, prefill_chunk: int = 128,
+                 eda: Optional[EDAConfig] = None,
+                 opts: RunOpts = DEFAULT_OPTS,
+                 sample: Optional[Callable] = None,
+                 name: str = "serve0",
+                 ledger: Optional[Ledger] = None,
+                 clock: Optional[Clock] = None,
+                 overflow: str = "reject",
+                 starvation_limit: Optional[int] = 8,
+                 paged: Optional[bool] = None,
+                 block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 device=None) -> None:
+        super().__init__(name, slots=slots, eda=eda, ledger=ledger,
+                         clock=clock)
+        if overflow not in ("reject", "truncate"):
+            raise ValueError(f"overflow must be 'reject' or 'truncate', "
+                             f"got {overflow!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.capacity = cache_capacity
+        self.prefill_chunk = prefill_chunk
+        self.opts = opts
+        self.sample = sample or _argmax_sample
+        self.overflow = overflow
+
+        if paged is None:
+            paged = T.paged_eligible(cfg)
+        elif paged and not T.paged_eligible(cfg):
+            raise ValueError(
+                f"paged=True but arch {cfg.name!r} is not paged-eligible "
+                f"(layers {cfg.layer_kinds()}, attention {cfg.attention!r})")
+        self.paged = bool(paged)
+        self.block_size = block_size
+        window = cfg.window if cfg.attention == "sliding" else 0
+        if self.paged:
+            if window:
+                # ring at block granularity: R columns with
+                # (R-1)*bs + 1 >= window keep every in-window entry
+                ring_cols = -(-(window - 1) // block_size) + 1
+            else:
+                ring_cols = -(-cache_capacity // block_size)
+            self.table_cols = ring_cols
+            self.num_blocks = num_blocks or slots * ring_cols
+            self.block_pool = BlockPool(self.num_blocks, block_size)
+            self.caches = T.init_paged_caches(cfg, self.num_blocks,
+                                              block_size, device=self.device)
+            # host-side block table: -1 = unused column; tbl_len is each
+            # slot's live ring length in columns
+            self._tbl = np.full((slots, self.table_cols), -1, np.int32)
+            self._tbl_len = np.ones((slots,), np.int32)
+            self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+        else:
+            self.num_blocks = 0
+            self.block_pool = None
+            self.caches = T.init_caches(cfg, slots, cache_capacity,
+                                        device=self.device)
+            # a sliding-window arch's ring is clipped to the window: chunks
+            # wider than that ring cannot land in one slice write
+            self._dense_ring = (min(cache_capacity, window) if window
+                                else cache_capacity)
+        # decode lanes via the core pool: no preemption — an admitted
+        # request's cache row is never evicted mid-decode
+        self.pool = LanePool(slots, preempt=False)
+        self.slot_pos = np.zeros((slots,), np.int32)
+        self.slot_last = np.zeros((slots,), np.int32)
+        self.queue = PriorityQueue(starvation_limit=starvation_limit)
+        self.finished: List[Request] = []
+        self.token_cost_ms = self.unit_cost_ms
+        self.tokens_generated = 0
+        self._fns = dispatch_fns(cfg, opts, self.sample)
+
+    @property
+    def active(self) -> List[Optional[Request]]:
+        return self.pool.lanes
+
+    def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+    def _blocks_needed(self, n_prompt: int, max_new: int) -> int:
+        """Table columns a request needs: its logical KV extent, clipped
+        to the ring."""
+        extent = min(n_prompt + max_new, self.capacity)
+        return max(1, min(self.table_cols, -(-extent // self.block_size)))
+
+    def submit(self, req: Request) -> None:
+        """Queue a request (hazard class first) and stamp its arrival off
+        the engine clock."""
+        n_prompt = int(np.shape(req.tokens)[0])
+        if n_prompt > self.capacity - 1:
+            if self.overflow == "reject":
+                raise ValueError(
+                    f"request {req.rid!r}: prompt length {n_prompt} "
+                    f"exceeds cache_capacity-1 = {self.capacity - 1} — "
+                    f"prefill would wrap the ring and corrupt other "
+                    f"slots' caches (construct the engine with "
+                    f"overflow='truncate' to clip instead)")
+            # keep the most recent context
+            req.tokens = np.asarray(req.tokens)[-(self.capacity - 1):]
+            req.prompt_truncated = True
+            n_prompt = self.capacity - 1
+        if self.paged:
+            need = self._blocks_needed(n_prompt, req.max_new_tokens)
+            if need > self.num_blocks:
+                raise ValueError(
+                    f"request {req.rid!r}: needs {need} KV blocks but the "
+                    f"pool only has {self.num_blocks} total (block_size="
+                    f"{self.block_size}) — grow num_blocks")
+        req.arrival_s = self.clock.now_s()
+        self.queue.push(req)
+
+    def _token_budget(self, req: Request) -> int:
+        return self.budget(req.deadline_ms, req.max_new_tokens,
+                           self.token_cost_ms.get(50.0))
+
+    def _prefill_loop(self, slot: int, req: Request) -> int:
+        """Chunked prefill in DESCENDING POWER-OF-TWO chunks capped at
+        ``prefill_chunk`` and at the ring (e.g. 23 -> 8+8+4+2+1): never any
+        padding; an odd prompt ends in a 1-token chunk, which attends
+        through the decode kernel.  Returns the sampled first token."""
+        toks = self._dev(req.tokens, torch.long)[None, :]
+        S = int(toks.shape[1])
+        pos = torch.arange(S, dtype=torch.int32, device=self.device)[None, :]
+        max_chunk = min(self.prefill_chunk, self.capacity)
+        if self.paged:
+            # a chunk must not exceed the slot's ring (two positions of one
+            # scatter mapping to the same pool entry would race)
+            max_chunk = min(max_chunk,
+                            int(self._tbl_len[slot]) * self.block_size)
+            tbl = self._dev(self._tbl[slot: slot + 1])
+            tlen = self._dev(self._tbl_len[slot: slot + 1])
+        else:
+            max_chunk = min(max_chunk, self._dense_ring)
+            row = T.init_caches(self.cfg, 1, self.capacity, device=self.device)
+        max_chunk = 1 << (max_chunk.bit_length() - 1)
+        first = None
+        c0 = 0
+        while c0 < S:
+            chunk = max_chunk
+            while chunk > S - c0:
+                chunk //= 2
+            if self.paged:
+                reset = self._dev([1 if c0 == 0 else 0])
+                first, self.caches = self._fns["paged_prefill"](
+                    self.params, self.caches, toks[:, c0: c0 + chunk],
+                    pos[:, c0: c0 + chunk], tbl, tlen, reset)
+            else:
+                first, row = self._fns["prefill"](
+                    self.params, row, toks[:, c0: c0 + chunk],
+                    pos[:, c0: c0 + chunk], c0)
+            c0 += chunk
+        if not self.paged:
+            self.caches = insert_row(self.caches, row, slot)
+        return int(first)
+
+    def _admit(self, slot: int, req: Request) -> None:
+        """Allocate KV (paged: may raise :class:`BlockPoolExhausted` BEFORE
+        any compute — the caller backpressures), chunk-prefill, bind."""
+        S = int(np.shape(req.tokens)[0])
+        if self.paged:
+            ncols = self._blocks_needed(S, req.max_new_tokens)
+            blocks = self.block_pool.alloc(ncols, req.rid)
+            self._slot_blocks[slot] = blocks
+            self._tbl[slot, :] = -1
+            self._tbl[slot, :ncols] = blocks
+            self._tbl_len[slot] = ncols
+        t0 = self.clock.now_s()
+        with self.tspan("prefill", rid=req.rid, tokens=S, slot=slot):
+            first = self._prefill_loop(slot, req)
+            self.clock.charge(PREFILL, S)        # no-op on a WallClock
+        req.processing_ms += (self.clock.now_s() - t0) * 1000.0
+
+        req.generated.append(first)
+        req.prefill_done_s = self.clock.now_s()
+        self.tinstant("ttft", rid=req.rid, ttft_ms=req.ttft_ms)
+        self.pool.bind(req, slot)
+        self.slot_pos[slot] = S
+        self.slot_last[slot] = first
+
+    # ------------------------------------------------------------------
+    # engine loop
+    # ------------------------------------------------------------------
+    def rebalance(self) -> None:
+        """Admission at tick start: free slots take queued requests, hazard
+        class first.  Paged: pool exhaustion re-queues the request at the
+        front of its class and stops admitting this tick (backpressure)."""
+        for slot in range(self.slots):
+            if self.active[slot] is None and self.queue:
+                req = self.queue.pop()
+                try:
+                    self._admit(slot, req)
+                except BlockPoolExhausted:
+                    self.queue.push(req, front=True)
+                    break
+
+    def _free_slot_blocks(self, slot: int, rid: str) -> None:
+        self.block_pool.free(self._slot_blocks[slot], rid)
+        self._slot_blocks[slot] = []
+        self._tbl[slot, :] = -1
+        self._tbl_len[slot] = 1
+
+    def _retire(self, req: Request) -> None:
+        """Close a finished request into the ledger; paged: return its
+        blocks to the pool and blank its table row."""
+        if self.paged:
+            self._free_slot_blocks(req.lane, req.rid)
+        req.truncated = len(req.generated) < req.max_new_tokens
+        req.finish_s = self.clock.now_s()
+        self.finished.append(req)
+        self.pool.free(req)
+        if self.emitter is not None:
+            self.emitter.emit(req.rid, TOKEN_DONE, len(req.generated),
+                              emit_s=req.finish_s, trunc=req.truncated)
+            if req.truncated:
+                self.emitter.emit(req.rid, DEADLINE_MISS,
+                                  len(req.generated), emit_s=req.finish_s,
+                                  n=req.max_new_tokens - len(req.generated))
+        rec = SegmentRecord(
+            video_id=req.rid,
+            stream=OUTER if req.priority == 0 else INNER,
+            device=self.name,
+            processing_ms=req.processing_ms,
+            # the deadline plays the video-length role
+            video_len_ms=req.deadline_ms,
+            esd=self.eda.esd,
+            frames_total=req.max_new_tokens,
+            frames_processed=len(req.generated),
+            ttft_ms=req.ttft_ms)
+        rec.close(req.turnaround_ms)
+        self.ledger.add(rec)
+        if self.metrics is not None:
+            eng = ("engine",)
+            self.metrics.histogram(
+                "serve_ttft_ms", "time to first token, retired requests",
+                eng).labels(engine=self.name).observe(req.ttft_ms)
+            self.metrics.counter(
+                "serve_retired_total", "requests retired", eng,
+            ).labels(engine=self.name).inc()
+
+    # ------------------------------------------------------------------
+    # failover (gateway-driven)
+    # ------------------------------------------------------------------
+    def evacuate(self) -> List[tuple]:
+        """Strip every in-flight and queued request off this replica.
+        Active requests lose their prefill (the KV cannot travel): they are
+        rewound to submit state and their blocks returned.  Returns
+        ``[(request, age_s)]``, actives in slot order then queued in pop
+        order."""
+        now = self.clock.now_s()
+        orphans: List[tuple] = []
+        for slot, req in enumerate(list(self.active)):
+            if req is None:
+                continue
+            if self.paged:
+                self._free_slot_blocks(slot, req.rid)
+            self.pool.free(req)
+            req.generated = []
+            req.prefill_done_s = 0.0
+            req.lane = -1
+            req.bound_seq = -1
+            orphans.append((req, now - req.arrival_s))
+        while self.queue:
+            req = self.queue.pop()
+            orphans.append((req, now - req.arrival_s))
+        return orphans
+
+    def adopt_request(self, req: Request, age_s: float = 0.0) -> None:
+        """Accept an evacuated request: a normal ``submit`` with the arrival
+        rebased so the wait already served still counts."""
+        self.submit(req)
+        req.arrival_s = self.clock.now_s() - age_s
+
+    def step(self) -> int:
+        """One engine tick: admit into free slots, then decode one token
+        for every active slot.  Returns tokens generated."""
+        t0 = self.begin_tick()
+        if not any(self.active):
+            self.end_tick(t0, 0)
+            return 0
+
+        t_d = self.clock.now_s()
+        n_active = sum(r is not None for r in self.active)
+        with self.tspan("decode", n=n_active):
+            tokens = self._dev(self.slot_last[:, None], torch.long)
+            positions = self._dev(self.slot_pos)
+            if self.paged:
+                nxt, self.caches = self._fns["paged_decode"](
+                    self.params, self.caches, tokens, positions,
+                    self._dev(self._tbl), self._dev(self._tbl_len))
+            else:
+                nxt, self.caches = self._fns["decode"](
+                    self.params, self.caches, tokens, positions)
+            nxt_host = nxt.cpu().numpy()
+            dt = self.finish_dispatch(n_active, t_d, TOKEN)
+
+        self.slot_pos = self.slot_pos + 1
+        self.slot_last = nxt_host.astype(np.int32)
+        for slot, req in enumerate(list(self.active)):
+            if req is None:
+                continue
+            req.generated.append(int(nxt_host[slot]))
+            req.processing_ms += dt * 1000.0 / n_active
+            budget = self._token_budget(req)
+            if len(req.generated) >= min(req.max_new_tokens, budget) \
+                    or int(self.slot_pos[slot]) >= self.capacity - 1:
+                self._retire(req)
+        self.tokens_generated += n_active
+        self.end_tick(t0, n_active)
+        return n_active
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.active)
+
+    def backlog_units(self) -> int:
+        """Queued + in-flight requests (the core pressure signal)."""
+        return len(self.queue) + sum(r is not None for r in self.active)
+
+    def stats(self) -> dict:
+        """Serving-loop telemetry (mirrors the vision engine's)."""
+        out = {
+            "ticks": self.ticks,
+            "tokens_generated": self.tokens_generated,
+            "busy_s": self.busy_s,
+            "token_cost_ms": self.token_cost_ms.get(0.0),
+            "tick_cost_ms": self.tick_cost_ms.get(0.0),
+            "paged": self.paged,
+        }
+        if self.paged:
+            out["kv_blocks_used"] = self.block_pool.used_blocks
+            out["kv_blocks_free"] = self.block_pool.free_blocks
+        return out
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        ticks = 0
+        while self.has_work() and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return self.finished

@@ -2,8 +2,9 @@
 
 Every test here is marked ``cuda`` and skips without an NVIDIA card: the
 kernels have no CPU mode.  This file imports no JAX (the card's machine has
-none), so it keeps a copy of ``kernel_harness.TIGHT``; a CPU test in
-``test_torch_vision_ops.py`` pins the two together.  Run on the card with
+none), so it keeps copies of ``kernel_harness.TIGHT`` and ``LOOSE``; CPU
+tests in ``test_torch_vision_ops.py`` and ``test_torch_attention_ops.py``
+pin them together.  Run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -11,18 +12,37 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.clock import FRAME, TICK, VirtualClock
+from repro_torch.config import get_arch
+from repro_torch.core.clock import FRAME, PREFILL, TICK, TOKEN, VirtualClock
 from repro_torch.data.synthetic import frame_loop
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import paged_attention as pa_k
 from repro_torch.kernels import vision_ops as tvo
+from repro_torch.models import transformer as TT
+from repro_torch.models.attention import RunOpts
+from repro_torch.models.param import tree_to
+from repro_torch.serving import Request, ServeEngine
 from repro_torch.streams import INNER, OUTER, VisionServeEngine
 
 TIGHT = dict(rtol=2e-5, atol=2e-5)
+LOOSE = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture(scope="session")
+def built():
+    """Build the kernel libraries once, in set-up: a build of
+    ``attention.cu`` takes tens of seconds, which no test should count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import build
+    for name in ("vision_ops", "attention"):
+        build.load(name)
 
 
 @pytest.fixture
-def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+def dev(built):
     return torch.device("cuda")
 
 
@@ -134,3 +154,173 @@ def test_engine_on_card_matches_cpu(dev, no_tf32):
             assert tvo.LAUNCHES["ingest_frame"] > 0
             assert tvo.LAUNCHES["scatter_admit"] > 0
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# attention kernels (flash, decode, paged flash, paged decode)
+# ---------------------------------------------------------------------------
+
+
+def _attn_case(seed, lens, S, Hq, Hkv, D, bs, M, dtype):
+    """Contiguous and paged views of the same logical KV.  Row b holds
+    positions 0..lens[b]-1 in shuffled pool blocks (garbage values
+    elsewhere, garbage positions in unreferenced blocks), its table
+    columns past its length are -1, and its S queries sit at its last S
+    positions."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    ncols = [max(1, -(-L // bs)) for L in lens]
+    nb = sum(ncols) + 3
+    perm = rng.permutation(nb)
+    kp = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
+    ppos = rng.integers(0, max(lens) + 4, (nb, bs)).astype(np.int32)
+    tbl = np.full((B, M), -1, np.int32)
+    C = max(ncols) * bs
+    k = np.zeros((B, C, Hkv, D), np.float32)
+    v = np.zeros((B, C, Hkv, D), np.float32)
+    kv_pos = np.full((B, C), -1, np.int32)
+    take = 0
+    for b, L in enumerate(lens):
+        blocks = perm[take: take + ncols[b]]
+        take += ncols[b]
+        tbl[b, :ncols[b]] = blocks
+        for p in range(L):
+            blk, off = blocks[p // bs], p % bs
+            kp[blk, off] = k[b, p] = rng.normal(size=(Hkv, D))
+            vp[blk, off] = v[b, p] = rng.normal(size=(Hkv, D))
+            ppos[blk, off] = kv_pos[b, p] = p
+        for p in range(L, ncols[b] * bs):      # tail entries: empty
+            ppos[blocks[p // bs], p % bs] = -1
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    q_pos = np.stack([np.arange(L - S, L) for L in lens]).astype(np.int32)
+    t = lambda a: torch.from_numpy(a)
+    cast = lambda a: t(a).to(dtype)
+    return dict(q=cast(q), k=cast(k), v=cast(v), kp=cast(kp), vp=cast(vp),
+                ppos=t(ppos), tbl=t(tbl), q_pos=t(q_pos), kv_pos=t(kv_pos))
+
+
+def _run_all(c, window, dev):
+    """(kernel, plain) outputs of the four kernels on one case."""
+    g = {n: x.to(dev) for n, x in c.items()}
+    S = c["q"].shape[1]
+    out = []
+    if S == 1:
+        out.append((dec_k.decode_attention(g["q"], g["k"], g["v"], g["q_pos"],
+                                           g["kv_pos"], window=window),
+                    dec_k.decode_attention_plain(g["q"], g["k"], g["v"],
+                                                 g["q_pos"], g["kv_pos"],
+                                                 window=window)))
+        out.append((pa_k.paged_decode_attention(
+            g["q"], g["kp"], g["vp"], g["ppos"], g["tbl"], g["q_pos"],
+            window=window), pa_k.paged_decode_attention_plain(
+            g["q"], g["kp"], g["vp"], g["ppos"], g["tbl"], g["q_pos"],
+            window=window)))
+    out.append((fa_k.flash_attention(g["q"], g["k"], g["v"], g["q_pos"],
+                                     g["kv_pos"], window=window),
+                fa_k.flash_attention_plain(g["q"], g["k"], g["v"], g["q_pos"],
+                                           g["kv_pos"], window=window)))
+    out.append((pa_k.paged_flash_attention(
+        g["q"], g["kp"], g["vp"], g["ppos"], g["tbl"], g["q_pos"],
+        window=window), pa_k.paged_flash_attention_plain(
+        g["q"], g["kp"], g["vp"], g["ppos"], g["tbl"], g["q_pos"],
+        window=window)))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads", [(4, 1), (4, 4), (24, 2)],
+                         ids=["gqa4", "mha", "g12"])
+@pytest.mark.parametrize("S", [1, 7])
+def test_attention_kernels_match_plain(dev, dtype, heads, S):
+    """All four kernels against their plain versions: ragged lengths,
+    trailing -1 columns, a window, D = 16 and 128."""
+    Hq, Hkv = heads
+    D = 128 if Hq == 24 else 16
+    tol = TIGHT if dtype == torch.float32 else LOOSE
+    for window in (0, 8):
+        c = _attn_case(1, [9, 40, 17], S, Hq, Hkv, D, 8, 8, dtype)
+        for got, want in _run_all(c, window, dev):
+            assert got.dtype == want.dtype == dtype
+            torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                                       **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 128])
+def test_attention_kernels_at_token_path_shapes(dev, S):
+    """fp32 at TIGHT at starcoder2-3b's heads with 257 table columns of 16
+    and a row of 1031 keys (a 1000-token prompt and 31 decoded): live
+    columns compacted past 32, more than 48 KB of shared memory, more than
+    32 key tiles."""
+    lens = [1031] if S > 1 else [33, 517, 1000, 1031]
+    c = _attn_case(6, lens, S, 24, 2, 128, 16, 257, torch.float32)
+    for got, want in _run_all(c, 0, dev):
+        torch.testing.assert_close(got.cpu(), want.cpu(), **TIGHT)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_edges(dev):
+    """A row whose table is all -1 gives exactly 0; a ring that has wrapped
+    masks its stale entries by window; D = 64 with bs 16."""
+    c = _attn_case(2, [5, 70], 3, 8, 2, 64, 16, 6, torch.float32)
+    c["tbl"][0] = -1
+    c["kv_pos"][0] = -1
+    for got, want in _run_all(c, 0, dev):
+        assert torch.equal(got[0].cpu(), torch.zeros_like(got[0].cpu()))
+        torch.testing.assert_close(got.cpu(), want.cpu(), **TIGHT)
+    # wrapped ring: positions 0..47 written into 2 columns of 16 (ring len
+    # 2), so the pool holds 32..47 and 16..31; window 8 keeps 40..47
+    q = torch.randn(1, 1, 8, 64, generator=torch.Generator().manual_seed(0))
+    kp = torch.randn(4, 16, 2, 64, generator=torch.Generator().manual_seed(1))
+    vp = torch.randn(4, 16, 2, 64, generator=torch.Generator().manual_seed(2))
+    ppos = torch.full((4, 16), -1, dtype=torch.int32)
+    ppos[2] = torch.arange(32, 48, dtype=torch.int32)
+    ppos[1] = torch.arange(16, 32, dtype=torch.int32)
+    tbl = torch.tensor([[2, 1, -1]], dtype=torch.int32)
+    qp = torch.tensor([[47]], dtype=torch.int32)
+    args = [x.to(dev) for x in (q, kp, vp, ppos, tbl, qp)]
+    got = kops.paged_attention(*args, window=8)
+    want = pa_k.paged_decode_attention_plain(*args, window=8)
+    torch.testing.assert_close(got.cpu(), want.cpu(), **TIGHT)
+
+
+@pytest.mark.cuda
+def test_token_engine_on_card_matches_cpu(dev):
+    """Reduced starcoder2-3b (fp32), both KV layouts: the kernels on the
+    card and the plain versions on the CPU give the same token streams;
+    the card run launched all four attention kernels."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch("starcoder2-3b").reduced()
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 23, 12, 9)]
+        launches = {}
+        for paged in (True, False):
+            streams = {}
+            for device in ("cuda", "cpu"):
+                kops.reset_launches()
+                eng = ServeEngine(
+                    cfg, params if device == "cpu" else tree_to(params, dev),
+                    slots=2, cache_capacity=48,
+                    prefill_chunk=8, block_size=4, paged=paged,
+                    opts=RunOpts(use_kernels=True), device=device,
+                    clock=VirtualClock(rates={TOKEN: 0.002, PREFILL: 0.0005}))
+                for i, p in enumerate(prompts):
+                    eng.submit(Request(rid=f"r{i}", tokens=p,
+                                       max_new_tokens=6, priority=i % 2))
+                streams[device] = {r.rid: r.generated for r in eng.run()}
+                if device == "cuda":
+                    launches.update({k: n for k, n in kops.launches().items()
+                                     if n})
+            assert streams["cuda"] == streams["cpu"]
+        assert set(launches) == {"flash", "decode", "paged_flash",
+                                 "paged_decode"}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -30,6 +30,7 @@ def _modules():
 def test_every_module_imports_without_jax_or_reference():
     mods = list(_modules())
     assert "repro_torch.streams.vision_engine" in mods
+    assert "repro_torch.serving.engine" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -59,13 +60,30 @@ def test_no_source_file_names_jax_or_reference_in_an_import():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.config import get_arch
     from repro_torch.device import resolve_device
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import ServeEngine
     from repro_torch.streams import MotionGate, VisionServeEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VisionServeEngine("e", slots=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MotionGate(1)
+    cfg = get_arch("starcoder2-3b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.init_params(cfg, torch.Generator().manual_seed(0))
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params)
+    for init in (TT.init_caches, TT.init_paged_caches, TA.init_cache,
+                 TA.init_paged_cache):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init(cfg, 2, 16)
+        assert init(cfg, 2, 16, device="cpu")
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
