@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two main paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
 Phases (any failure exits non-zero; nothing is swallowed; each prints its
 wall seconds):
 
-  1. build     compile ``src/repro_torch/kernels/csrc/vision_ops.cu`` and
-               ``attention.cu`` with nvcc for sm_90a, one nvcc per source,
-               started together; print the build times and the card's name
-               and power limit.
+  1. build     compile ``src/repro_torch/kernels/csrc/vision_ops.cu``,
+               ``attention.cu`` and ``recurrent.cu`` with nvcc for sm_90a,
+               one nvcc per source, started together; print the build
+               times and the card's name and power limit.
   2. kernels   hold each vision kernel against its plain PyTorch version on
                the card, at the main path's shapes and at edge shapes
                (uint8 frames, box resampling, g=20 with block=8, a bf16
@@ -39,11 +39,14 @@ wall seconds):
                path's shapes in fp32 too, with one row of 1031 keys;
                TIGHT for fp32, LOOSE for bf16; times with a cold L2 beside
                ``scaled_dot_product_attention`` over the same (gathered)
-               KV with a mask from the positions.
+               KV with a mask from the positions.  Then flash and decode
+               at recurrentgemma-9b's heads (Hq 16, Hkv 1, D 256, window
+               2048, contiguous capacity 2048): edge shapes, main shapes in
+               fp32 and bf16, and their times beside SDPA's.
   7. tokens    ``ServeEngine`` on full-width, full-depth starcoder2-3b
-               (bf16, random weights from a seed), slots=8, capacity 2048,
-               prefill chunk 128: 16 requests of 33-1000 prompt tokens, 32
-               new tokens each, drained through the paged layout (the
+               (bf16, random weights drawn on the card from a seed),
+               slots=8, capacity 2048, prefill chunk 128: 16 requests of
+               33-1000 prompt tokens, 32 new tokens each, drained through the paged layout (the
                default) and then the contiguous one; every request
                complete, ``ledger.check()``, the pool empty, logits
                finite, and the layout's two kernels launched.  Prints
@@ -53,13 +56,38 @@ wall seconds):
                equal token streams, teacher-forced last logits within
                TOKEN_TOL (a stream may part only where the CPU's top-two
                logit margin is below TOKEN_TOL; printed if so).
+  9. recurrent the RG-LRU scan (bit-exact) and the chunkwise mLSTM (fp32
+               within MLSTM_TOL, bf16 LOOSE) against their plain versions:
+               at the main paths' shapes (RG-LRU B 1, S 128, W 4096 with
+               h0; mLSTM BH 16, S 512, Dh 512) and at edge shapes (S not a
+               multiple of the chunk or the unroll, W and Dh not multiples
+               of a block, a strongly negative input gate); times with a
+               cold L2 beside the plain versions and the bound.
+ 10. rgemma    ``ServeEngine`` on full-width, full-depth recurrentgemma-9b
+               (bf16, 8.52 B random parameters drawn on the card from a
+               seed), contiguous, slots=8, capacity 2048, chunk 128: the
+               16 requests of phase 7; every request complete,
+               ``ledger.check()``, logits finite, kernels 7, 8 and 9
+               launched.  Prints decode ms/tick, decode and prefill
+               tokens/s, median TTFT and the launches.
+ 11. xlstm     full-width, full-depth xlstm-350m (bf16): ``prefill`` of 4
+               prompts x 512 tokens (the mLSTM kernel in each of its 21
+               mLSTM layers), 16 greedy ``decode_step``s, then a
+               ``ServeEngine`` drain of 8 requests of 16-128 prompt tokens,
+               16 new tokens each.
+ 12. rec/CPU   phase 8's comparison for recurrentgemma at one full-width
+               period (3 layers: R, R, A) and xlstm at one period (8
+               layers), fp32, weights drawn on the host; for xlstm also
+               the ``prefill`` logits of two 160-token prompts (a ragged
+               second chunk).
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
 global flags): the flags and the sampled tokens are threshold and argmax
 decisions, and TF32 rounding could flip them between the card and the CPU.
 
 The last lines are: the card's name and power limit, one JSON object with
-a ``kernels`` list (launches on the main paths, errors, times, bounds), and
+a ``kernels`` list of all ten kernels (launches on the main paths, errors,
+times, bounds), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
 it exits non-zero and prints no result.
 """
@@ -95,6 +123,13 @@ ATTN_REPLACES = {
     "decode": "src/repro/kernels/decode_attention.py:26",
 }
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+REC_REPLACES = {
+    "rglru_scan": "src/repro/kernels/rglru.py:29",
+    "mlstm_chunkwise": "src/repro/kernels/mlstm.py:36",
+}
+REC_SOURCE = "src/repro_torch/kernels/csrc/recurrent.cu"
+MLSTM_TOL = dict(rtol=3e-4, atol=3e-4)  # tests/test_kernels.py's mLSTM limit
+MLSTM_CHUNK = 128                       # kernels/mlstm.py DEFAULT_CHUNK
 
 # the token main path: starcoder2-3b as served by ServeEngine
 TOK_SLOTS, TOK_CAPACITY, TOK_CHUNK, TOK_BLOCK = 8, 2048, 128, 16
@@ -104,6 +139,9 @@ TOK_SEED = 0
 # must agree within TOKEN_TOL; fp32 sums in another order differ ~1e-5
 TOKEN_TOL = 1e-3
 CPU_REQUESTS, CPU_NEW, CPU_PROMPT = 4, 16, (17, 200)
+# xlstm-350m: prefill batch, then greedy steps; then a ServeEngine drain
+XL_PREFILL, XL_STEPS = (4, 512), 16
+XL_REQUESTS, XL_NEW, XL_PROMPT = 8, 16, (16, 128)
 
 
 def fail(msg: str) -> None:
@@ -536,10 +574,159 @@ def check_attention(torch, dev):
                   f"library (sdpa) {r['library_ms']:.4f} ms  bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
                   f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    # recurrentgemma-9b's heads: Hq 16 over one kv head, D 256 (its
+    # 32-key fp32 K+V tile alone is 64 KB), window 2048; its stack is
+    # contiguous, so flash and decode are timed; the paged kernels are held
+    # at the edge shapes too
+    d256 = {}
+    for S in (1, 9):
+        for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+            c = attn_case(torch, gen, dev, [12, 70, 33], S, 16, 1, 256, 16, 6,
+                          dtype)
+            for window in (0, 8):
+                for name, got in hold(c, window, tol).items():
+                    d256[name] = max(d256.get(name, 0.0), got)
+    rg_window = 2048
+    M = -(-(rg_window - 1) // TOK_BLOCK) + 1
+    for S, ls in {1: lens[:-1] + [longest], TOK_CHUNK: [longest]}.items():
+        for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+            c = attn_case(torch, gen, dev, ls, S, 16, 1, 256, TOK_BLOCK, M,
+                          dtype, C=TOK_CAPACITY)
+            for name, (kern, plain) in attn_calls(c, rg_window).items():
+                if name.startswith("paged"):
+                    continue
+                err = max_err(kern(), plain(), tol=tol)
+                errs[name] = max(errs[name], err)
+                d256[name] = max(d256.get(name, 0.0), err)
+                if dtype != torch.bfloat16:
+                    continue
+                nbytes, flops, valid = attn_work(torch, c["q"], c["q_pos"],
+                                                 c["kv_pos"], 1, rg_window)
+                qT = c["q"].transpose(1, 2).contiguous()
+                kT = c["k"].transpose(1, 2).contiguous()
+                vT = c["v"].transpose(1, 2).contiguous()
+                lib = (lambda qT=qT, kT=kT, vT=vT, mask=valid[:, None]:
+                       F.scaled_dot_product_attention(
+                           qT, kT, vT, attn_mask=mask, enable_gqa=True))
+                b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+                k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+                print(f"kernel {name} at D 256 (recurrentgemma-9b: Hq 16, "
+                      f"Hkv 1, window {rg_window}): B={c['q'].shape[0]} "
+                      f"S={S} cold L2: kernel {k_ms:.4f} ms  plain "
+                      f"{p_ms:.4f} ms  library (sdpa) {l_ms:.4f} ms  bound "
+                      f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
+                      f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    print(f"attention at D 256, G 16: max abs err {d256} (fp32 TIGHT, bf16 "
+          f"LOOSE)", flush=True)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
         print(f"kernel {name}: max_abs_err {errs[name]:.3g} over the edge "
               f"and main-path shapes", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: recurrent kernels
+# ---------------------------------------------------------------------------
+
+
+def mlstm_flops(B, S, H, Dh, chunk=MLSTM_CHUNK):
+    """Operations of the chunkwise mLSTM on these shapes: per chunk of L
+    rows, q.k and P.V over the L(L+1)/2 pairs s <= t; q.C and q.n against
+    the carried state past the first chunk; the state update (C, n) before
+    the last."""
+    starts = list(range(0, S, chunk))
+    total = 0
+    for ci, c0 in enumerate(starts):
+        L = min(chunk, S - c0)
+        total += 2 * (L * (L + 1) // 2) * 2 * Dh
+        if ci > 0:
+            total += 2 * L * Dh * Dh + 2 * L * Dh
+        if ci < len(starts) - 1:
+            total += 2 * L * Dh * Dh + 2 * L * Dh
+    return B * H * total
+
+
+def check_recurrent(torch, dev):
+    """Phase 9.  Returns {name: row} for the JSON line (launches filled in
+    from the recurrentgemma and xlstm paths)."""
+    from repro_torch.kernels import mlstm as mlstm_k
+    from repro_torch.kernels import rglru as rglru_k
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def normal(*shape, dtype=torch.float32, shift=0.0):
+        x = torch.randn(shape, generator=gen, device=dev) + shift
+        return x.to(dtype)
+
+    def decay(*shape):
+        return 0.2 + 0.799 * torch.rand(shape, generator=gen, device=dev)
+
+    def mcase(B, S, H, Dh, dtype, i_shift=0.0, gate_dtype=torch.float32):
+        q, k, v = (normal(B, S, H, Dh, dtype=dtype) for _ in range(3))
+        return (q, k, v, normal(B, S, H, shift=i_shift, dtype=gate_dtype),
+                normal(B, S, H, shift=2.0, dtype=gate_dtype))
+
+    # RG-LRU: the main path's chunk (B 1, S 128, W 4096, with h0), S not a
+    # multiple of the unroll and W not a multiple of the block, one step
+    errs = {"rglru_scan": 0.0}
+    for B, S, W, with_h0 in ((1, TOK_CHUNK, 4096, True), (2, 37, 1000, False),
+                             (3, 1, 77, True)):
+        a, b = decay(B, S, W), normal(B, S, W)
+        h0 = normal(B, W) if with_h0 else None
+        errs["rglru_scan"] = max(errs["rglru_scan"], max_err(
+            rglru_k.rglru_scan(a, b, h0), rglru_k.rglru_scan_plain(a, b, h0),
+            exact=True))
+    # mLSTM: xlstm-350m's prefill (B 4 x H 4, S 512, Dh 512), a ragged last
+    # chunk, Dh not a multiple of 32, a strongly negative input gate
+    m_err = {}
+    for B, S, H, Dh, shift in ((4, 512, 4, 512, 0.0), (1, 200, 2, 64, 0.0),
+                               (2, 37, 3, 48, 0.0), (1, 300, 2, 32, -40.0)):
+        for dtype, tol in ((torch.float32, MLSTM_TOL),
+                           (torch.bfloat16, LOOSE)):
+            x = mcase(B, S, H, Dh, dtype, shift)
+            key = f"{str(dtype).split('.')[-1]} B{B} S{S} H{H} Dh{Dh}" + (
+                f" i{shift:+g}" if shift else "")
+            m_err[key] = max_err(mlstm_k.mlstm_chunkwise(*x),
+                                 mlstm_k.mlstm_chunkwise_plain(*x), tol=tol)
+    errs["mlstm_chunkwise"] = max(m_err.values())
+    torch.cuda.synchronize()
+    print(f"rglru_scan: bit-identical to its plain version at (B, S, W) = "
+          f"(1, {TOK_CHUNK}, 4096) with h0, (2, 37, 1000), (3, 1, 77)",
+          flush=True)
+    print(f"mlstm_chunkwise: max abs err vs plain (fp32 tol {MLSTM_TOL}, "
+          f"bf16 LOOSE): {m_err}", flush=True)
+
+    # times at the main paths' shapes: the RG-LRU in fp32 as the model
+    # calls it; the mLSTM in bf16 with bf16 gates, as xlstm-350m's prefill
+    a, b, h0 = decay(1, TOK_CHUNK, 4096), normal(1, TOK_CHUNK, 4096), normal(
+        1, 4096)
+    xs = mcase(4, 512, 4, 512, torch.bfloat16, gate_dtype=torch.bfloat16)
+    B, S, H, Dh = xs[0].shape
+    plan = {
+        "rglru_scan": (lambda: rglru_k.rglru_scan(a, b, h0),
+                       lambda: rglru_k.rglru_scan_plain(a, b, h0),
+                       12 * a.numel() + 4 * h0.numel(), 2 * a.numel(),
+                       FP32_FLOPS),
+        "mlstm_chunkwise": (lambda: mlstm_k.mlstm_chunkwise(*xs),
+                            lambda: mlstm_k.mlstm_chunkwise_plain(*xs),
+                            4 * xs[0].numel() * 2 + 2 * xs[3].numel() * 2,
+                            mlstm_flops(B, S, H, Dh), BF16_FLOPS),
+    }
+    rows = {}
+    for name, (kern, plain, nbytes, flops, peak) in plan.items():
+        b_ms, b_by = bound(nbytes, flops, peak)
+        rows[name] = {
+            "name": name, "route": "cuda", "source": REC_SOURCE,
+            "replaces": REC_REPLACES[name], "launches": 0,
+            "max_abs_err": errs[name], "ms": time_ms(kern),
+            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        }
+        r = rows[name]
+        print(f"kernel {name}: cold L2: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library none  bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP)", flush=True)
     return rows
 
 
@@ -589,23 +776,12 @@ def serve(torch, cfg, params, reqs, *, paged, dev, slots, tracer=None):
 
 def token_main_path(torch, dev, card):
     """Phase 7.  Returns the launch counts of each layout's run."""
-    import numpy as np
     from repro_torch.config import get_arch
     from repro_torch.kernels import ops as kops
-    from repro_torch.models import transformer as TT
     from repro_torch.obs.tracing import SpanTracer
     from repro_torch.serving import Request
     cfg = get_arch("starcoder2-3b")
-    total, _ = cfg.param_counts()
-    t0 = time.perf_counter()
-    params = TT.init_params(cfg, torch.Generator().manual_seed(TOK_SEED),
-                            device=dev)
-    torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"tokens: starcoder2-3b {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {total / 1e9:.3f} B parameters, "
-          f"{nbytes / 1e9:.2f} GB {cfg.param_dtype}, drawn on the host and "
-          f"moved in {time.perf_counter() - t0:.1f} s", flush=True)
+    params = draw_on_card(torch, cfg, dev)
     reqs = token_requests(Request, cfg.vocab_size, TOK_REQUESTS, TOK_NEW,
                           TOK_PROMPT, TOK_SEED)
     warm = token_requests(Request, cfg.vocab_size, 2, 2, (33, 140), 99)
@@ -620,37 +796,164 @@ def token_main_path(torch, dev, card):
         eng, done, dt, finite = serve(torch, cfg, params, reqs, paged=paged,
                                       dev=dev, slots=TOK_SLOTS, tracer=tracer)
         launches[layout] = kops.launches()
-        if len(done) != TOK_REQUESTS or any(len(r.generated) != TOK_NEW
-                                            for r in done):
-            fail(f"{layout}: not every request finished with {TOK_NEW} "
-                 f"tokens: {[(r.rid, len(r.generated)) for r in done]}")
-        eng.ledger.check()
+        check_drain(layout, eng, done, TOK_REQUESTS, TOK_NEW, finite)
         if paged and eng.block_pool.used_blocks != 0:
             fail(f"paged pool holds {eng.block_pool.used_blocks} blocks "
                  f"after the drain")
-        if not finite:
-            fail(f"{layout}: non-finite logits")
         need = ("paged_decode", "paged_flash") if paged else ("decode",
                                                               "flash")
         for name in need:
             if launches[layout][name] == 0:
                 fail(f"{layout} token path never launched {name}")
-        dec = tracer.spans("decode")
-        pre = tracer.spans("prefill")
-        dec_s = sum(e["dur"] for e in dec) / 1e6
-        pre_s = sum(e["dur"] for e in pre) / 1e6
-        dec_tok = sum(e["args"]["n"] for e in dec)
-        pre_tok = sum(e["args"]["tokens"] for e in pre)
-        ttft = float(np.median([r.ttft_ms for r in done]))
-        print(f"tokens {layout}: {len(done)} requests, {pre_tok} prompt + "
-              f"{dec_tok + len(done)} generated tokens in {eng.ticks} ticks, "
-              f"{dt:.2f} s; decode {dec_s * 1e3 / len(dec):.3f} ms/tick, "
-              f"{dec_tok / dec_s:.1f} decode tokens/s, {pre_tok / pre_s:.1f} "
-              f"prefill tokens/s, median TTFT {ttft:.1f} ms on {card}; "
-              f"launches {launches[layout]}", flush=True)
+        report_drain(f"tokens {layout}", eng, done, dt, tracer, card,
+                     launches[layout])
         del eng
         torch.cuda.empty_cache()
     del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def report_drain(label, eng, done, dt, tracer, card, launches):
+    """Print a drain's decode ms/tick, decode and prefill tokens/s (from
+    the engine's ``decode`` and ``prefill`` spans) and median TTFT."""
+    import numpy as np
+    dec = tracer.spans("decode")
+    pre = tracer.spans("prefill")
+    dec_s = sum(e["dur"] for e in dec) / 1e6
+    pre_s = sum(e["dur"] for e in pre) / 1e6
+    dec_tok = sum(e["args"]["n"] for e in dec)
+    pre_tok = sum(e["args"]["tokens"] for e in pre)
+    ttft = float(np.median([r.ttft_ms for r in done]))
+    print(f"{label}: {len(done)} requests, {pre_tok} prompt + "
+          f"{dec_tok + len(done)} generated tokens in {eng.ticks} ticks, "
+          f"{dt:.2f} s; decode {dec_s * 1e3 / len(dec):.3f} ms/tick, "
+          f"{dec_tok / dec_s:.1f} decode tokens/s, {pre_tok / pre_s:.1f} "
+          f"prefill tokens/s, median TTFT {ttft:.1f} ms on {card}; "
+          f"launches {launches}", flush=True)
+
+
+def check_drain(label, eng, done, n, new, finite):
+    """Every request finished with ``new`` tokens, the ledger balances,
+    the sampled logits were finite."""
+    if len(done) != n or any(len(r.generated) != new for r in done):
+        fail(f"{label}: not every request finished with {new} tokens: "
+             f"{[(r.rid, len(r.generated)) for r in done]}")
+    eng.ledger.check()
+    if not finite:
+        fail(f"{label}: non-finite logits")
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: recurrentgemma-9b and xlstm-350m at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def draw_on_card(torch, cfg, dev):
+    """Full-size random weights drawn on the card from a seeded CUDA
+    generator per leaf (billions of parameters: the host's generator
+    would take up to a minute); they are never compared with the CPU."""
+    from repro_torch.models import transformer as TT
+    total, _ = cfg.param_counts()
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator().manual_seed(TOK_SEED),
+                            device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.layer_kinds()[:8]}..., "
+          f"d_model {cfg.d_model}, {total / 1e9:.3f} B parameters, "
+          f"{nbytes / 1e9:.2f} GB {cfg.param_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def recurrentgemma_main_path(torch, dev, card):
+    """Phase 10.  Returns the drain's launch counts."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs.tracing import SpanTracer
+    from repro_torch.serving import Request
+    cfg = get_arch("recurrentgemma-9b")
+    params = draw_on_card(torch, cfg, dev)
+    reqs = token_requests(Request, cfg.vocab_size, TOK_REQUESTS, TOK_NEW,
+                          TOK_PROMPT, TOK_SEED)
+    warm = token_requests(Request, cfg.vocab_size, 2, 2, (33, 140), 99)
+    serve(torch, cfg, params, warm, paged=None, dev=dev, slots=TOK_SLOTS)
+    torch.cuda.empty_cache()
+    tracer = SpanTracer()
+    kops.reset_launches()
+    eng, done, dt, finite = serve(torch, cfg, params, reqs, paged=None,
+                                  dev=dev, slots=TOK_SLOTS, tracer=tracer)
+    launches = kops.launches()
+    if eng.paged:
+        fail("recurrentgemma-9b was served from the paged pool")
+    check_drain("recurrentgemma-9b", eng, done, TOK_REQUESTS, TOK_NEW, finite)
+    for name in ("flash", "decode", "rglru_scan"):
+        if launches[name] == 0:
+            fail(f"recurrentgemma-9b path never launched {name}")
+    report_drain("recurrentgemma-9b contiguous", eng, done, dt, tracer, card,
+                 launches)
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xlstm_main_path(torch, dev, card):
+    """Phase 11.  Returns the prefill's launch counts."""
+    import numpy as np
+    from repro_torch.config import MLSTM, get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunOpts
+    from repro_torch.obs.tracing import SpanTracer
+    from repro_torch.serving import Request
+    cfg = get_arch("xlstm-350m")
+    params = draw_on_card(torch, cfg, dev)
+    opts = RunOpts(use_kernels=True)
+    B, S = XL_PREFILL
+    toks = torch.as_tensor(np.random.default_rng(TOK_SEED).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.long, device=dev)
+    TT.prefill(cfg, params, toks[:, :16], opts=opts)      # cuBLAS warm-up
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = TT.prefill(cfg, params, toks, opts=opts)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    launches = kops.launches()
+    n_mlstm = cfg.layer_kinds().count(MLSTM)
+    if launches["mlstm_chunkwise"] != n_mlstm:
+        fail(f"xlstm prefill launched mlstm_chunkwise "
+             f"{launches['mlstm_chunkwise']} times, not once in each of its "
+             f"{n_mlstm} mLSTM layers")
+    finite = torch.isfinite(logits).all()
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(XL_STEPS):
+        logits, caches = TT.decode_step(cfg, params, caches, nxt, S + i,
+                                        opts=opts)
+        finite &= torch.isfinite(logits).all()
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    if not bool(finite):
+        fail("xlstm prefill/decode gave non-finite logits")
+    print(f"xlstm-350m prefill {B} x {S} tokens in {t_pre * 1e3:.1f} ms "
+          f"({B * S / t_pre:.1f} tokens/s, mLSTM state rebuilt by the step "
+          f"recurrence), {XL_STEPS} decode steps {t_dec * 1e3 / XL_STEPS:.3f} "
+          f"ms/step ({B * XL_STEPS / t_dec:.1f} tokens/s) on {card}; prefill "
+          f"launches {launches}", flush=True)
+    del caches
+    reqs = token_requests(Request, cfg.vocab_size, XL_REQUESTS, XL_NEW,
+                          XL_PROMPT, TOK_SEED)
+    tracer = SpanTracer()
+    kops.reset_launches()
+    eng, done, dt, finite = serve(torch, cfg, params, reqs, paged=None,
+                                  dev=dev, slots=TOK_SLOTS, tracer=tracer)
+    check_drain("xlstm-350m", eng, done, XL_REQUESTS, XL_NEW, finite)
+    report_drain("xlstm-350m contiguous", eng, done, dt, tracer, card,
+                 kops.launches())
+    del eng, params
     torch.cuda.empty_cache()
     return launches
 
@@ -666,32 +969,39 @@ def _leaves(tree):
         yield tree
 
 
-def token_card_vs_cpu(torch, dev):
-    """Phase 8: full width, 2 layers, fp32; card (kernels) vs CPU (plain
-    versions), same weights, both layouts."""
+def token_card_vs_cpu(torch, dev, arch="starcoder2-3b", layers=2,
+                      layouts=(True, False)):
+    """Phases 8 and 12: full width, ``layers`` layers, fp32; card (kernels)
+    vs CPU (plain versions), same weights drawn on the host, each KV
+    layout in ``layouts``.  Returns (cfg, card params, CPU params)."""
     import dataclasses
     from repro_torch.config import get_arch
     from repro_torch.models import transformer as TT
     from repro_torch.models.attention import RunOpts
     from repro_torch.models.param import tree_to
     from repro_torch.serving import Request
-    cfg = dataclasses.replace(get_arch("starcoder2-3b"), num_layers=2,
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers,
                               param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
     cpu_params = TT.init_params(cfg, torch.Generator().manual_seed(7),
                                 device="cpu")
     card_params = tree_to(cpu_params, dev)
+    print(f"{arch} at {layers} layers {cfg.layer_kinds()}, fp32: weights "
+          f"drawn on the host in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     reqs = token_requests(Request, cfg.vocab_size, CPU_REQUESTS, CPU_NEW,
                           CPU_PROMPT, 7)
     opts = RunOpts(use_kernels=True)
 
     def last_logits(params, seq, device):
         toks = torch.as_tensor(seq, dtype=torch.long, device=device)[None]
-        logits, _, _ = TT.forward(cfg, params, toks, opts=opts)
+        logits, _, _ = TT.forward(cfg, params, toks, opts=opts,
+                                  last_only=True)
         return logits[0, -1].float().cpu()
 
     worst = 0.0
-    for paged in (True, False):
-        layout = "paged" if paged else "contiguous"
+    for paged in layouts:
+        layout = ("paged" if paged else "contiguous") + f" {arch}"
         t0 = time.perf_counter()
         _, card_done, _, _ = serve(torch, cfg, card_params, reqs,
                                    paged=paged, dev=dev, slots=CPU_REQUESTS)
@@ -726,6 +1036,28 @@ def token_card_vs_cpu(torch, dev):
               f", max |card - CPU| teacher-forced logit {worst:.3g} "
               f"(tol {TOKEN_TOL}); {time.perf_counter() - t0:.1f} s",
               flush=True)
+    return cfg, card_params, cpu_params
+
+
+def xlstm_prefill_card_vs_cpu(torch, dev, cfg, card_params, cpu_params):
+    """Phase 12's extra check: xlstm ``prefill`` logits of two 160-token
+    prompts (a 128-row chunk and a ragged 32-row one through the mLSTM
+    kernel on the card, the quadratic form on the CPU) within TOKEN_TOL."""
+    import numpy as np
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunOpts
+    opts = RunOpts(use_kernels=True)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 160))
+    out = {}
+    for device, params in ((dev, card_params), ("cpu", cpu_params)):
+        t = torch.as_tensor(toks, dtype=torch.long, device=device)
+        logits, _ = TT.prefill(cfg, params, t, opts=opts)
+        out[str(device)] = logits.float().cpu()
+    d = float((out[str(dev)] - out["cpu"]).abs().max())
+    if not d <= TOKEN_TOL:
+        fail(f"xlstm prefill logits differ card vs CPU by {d:.3g}")
+    print(f"rec/CPU xlstm prefill 2 x 160: max |card - CPU| logit {d:.3g} "
+          f"(tol {TOKEN_TOL})", flush=True)
 
 
 def main() -> int:
@@ -755,9 +1087,9 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = dict(zip(("vision_ops", "attention"),
-                         pool.map(timed_build, ("vision_ops", "attention"))))
+    sources = ("vision_ops", "attention", "recurrent")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        built = dict(zip(sources, pool.map(timed_build, sources)))
     for name, (lib, secs) in built.items():
         print(f"build: {name}.cu in {secs:.1f} s on {card}", flush=True)
         log = lib.with_suffix(".log")
@@ -873,6 +1205,28 @@ def main() -> int:
     # ---- phase 8: the token path on the card vs the CPU --------------------
     token_card_vs_cpu(torch, dev)
     phase_done(8, "token card vs CPU")
+
+    # ---- phase 9: recurrent kernels vs plain --------------------------------
+    rows.update(check_recurrent(torch, dev))
+    phase_done(9, "recurrent kernels")
+
+    # ---- phase 10: recurrentgemma-9b, full width and depth ------------------
+    rg = recurrentgemma_main_path(torch, dev, card)
+    rows["rglru_scan"]["launches"] = rg["rglru_scan"]
+    print(f"recurrentgemma-9b drain launches: flash {rg['flash']}, decode "
+          f"{rg['decode']}, rglru_scan {rg['rglru_scan']}", flush=True)
+    phase_done(10, "recurrentgemma-9b main path")
+
+    # ---- phase 11: xlstm-350m, full width and depth --------------------------
+    xl = xlstm_main_path(torch, dev, card)
+    rows["mlstm_chunkwise"]["launches"] = xl["mlstm_chunkwise"]
+    phase_done(11, "xlstm-350m main path")
+
+    # ---- phase 12: both archs on the card vs the CPU ------------------------
+    token_card_vs_cpu(torch, dev, "recurrentgemma-9b", 3, (False,))
+    xl_args = token_card_vs_cpu(torch, dev, "xlstm-350m", 8, (False,))
+    xlstm_prefill_card_vs_cpu(torch, dev, *xl_args)
+    phase_done(12, "recurrent card vs CPU")
     print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)

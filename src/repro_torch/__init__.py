@@ -8,17 +8,20 @@ Ported so far — the vision main path (push -> ledger record) and the
 token path (request -> chunked prefill -> decode -> ledger record):
 
   config / configs              EDAConfig, VisionConfig, ModelConfig and
-                                the arch registry (starcoder2-3b)
+                                the arch registry (starcoder2-3b,
+                                recurrentgemma-9b, xlstm-350m)
   core                          clock, early_stop, telemetry, engine_core
   obs                           sketch, metrics, tracing
   events.envelope               event taxonomy
   models                        param descriptors, detector/pose CNNs,
                                 layers, attention (contiguous and paged
-                                KV), pure-attention transformer
+                                KV), RG-LRU, mLSTM/sLSTM, the transformer
+                                (attention, hybrid and xLSTM stacks)
   kernels                       hand-written CUDA (sm_90a) kernels, each
                                 beside its plain version: ingest,
                                 scatter-admit, downscale, block-SAD; paged
-                                decode, paged flash, flash, decode
+                                decode, paged flash, flash, decode; RG-LRU
+                                scan, chunkwise mLSTM
   streams                       MotionGate, tiers, VisionServeEngine
   serving                       ServeEngine (the token workload shell)
   launch.serve                  the serving CLI

@@ -11,8 +11,12 @@ Transformers: the reference groups layers into segments run by
 ``lax.scan``, each leaf of a repeated segment stacked with a leading layer
 axis (``models/transformer.py`` ``plan_layers``/``model_param_tree``).
 The port keeps one parameter dict per layer and one cache dict per layer,
-so :func:`transformer_from_jax` and :func:`caches_from_jax` unstack.
-Weights keep their ``(d_in, d_out)`` layout: no transpose.
+so :func:`transformer_from_jax` and :func:`caches_from_jax` unstack.  A
+hybrid pattern is a multi-position period (recurrentgemma-9b: (RG-LRU,
+RG-LRU, attention) x 12 + RG-LRU x 2; xlstm-350m: (7 x mLSTM, sLSTM) x 3):
+position j of repeat r is layer ``r * len(period) + j``.  Recurrent state
+leaves (``h``, ``conv``, ``C``, ``n``, ``m``, ``c``) are carried across as
+they are.  Weights keep their ``(d_in, d_out)`` layout: no transpose.
 """
 from __future__ import annotations
 

@@ -14,39 +14,28 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128)  # instantiated in csrc/attention.cu
+HEAD_DIMS = (16, 64, 128, 256)  # instantiated in csrc/attention.cu
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "attn_flash": (_P,) * 6 + (_I,) * 8 + (_F, _I, _P),
-    "attn_decode": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
-    "attn_paged_flash": (_P,) * 7 + (_I,) * 9 + (_F, _I, _P),
-    "attn_paged_decode": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P),
-}
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import build
-    lib = build.load("attention")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+_SIGNATURES = (
+    ("attn_flash", (_P,) * 6 + (_I,) * 8 + (_F, _I, _P)),
+    ("attn_decode", (_P,) * 6 + (_I,) * 6 + (_F, _I, _P)),
+    ("attn_paged_flash", (_P,) * 7 + (_I,) * 9 + (_F, _I, _P)),
+    ("attn_paged_decode", (_P,) * 7 + (_I,) * 7 + (_F, _I, _P)),
+)
 
 
 def launch(name: str, *args) -> None:
-    err = getattr(_lib(), name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    """Launch ``name`` of ``csrc/attention.cu`` (built at first use)."""
+    build.launch(build.bind("attention", _SIGNATURES), name, *args)
 
 
 def stream(t: torch.Tensor) -> int:
@@ -64,7 +53,7 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
-        raise ValueError(f"attention kernels run on cuda or cpu tensors, got {dev}")
+        raise ValueError(f"the kernels run on cuda or cpu tensors, got {dev}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"kernel inputs must be contiguous, got strides "

@@ -68,3 +68,23 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per
     process."""
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.cache
+def bind(name: str, signatures: tuple) -> ctypes.CDLL:
+    """:func:`load` ``csrc/<name>.cu`` and declare its C entry points:
+    ``signatures`` is ``((function, argtypes), ...)``; every entry point
+    returns an ``int`` CUDA error code (0 = success)."""
+    lib = load(name)
+    for fn_name, argtypes in signatures:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, *args) -> None:
+    """Call one C entry point; raise on a non-zero CUDA error code."""
+    err = getattr(lib, fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")

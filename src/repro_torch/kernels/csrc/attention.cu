@@ -12,9 +12,11 @@
 // "KV source": PagedSrc reads the shared block pool kp/vp (nb, bs, Hkv, D)
 // through the block table tbl (B, M); ContigSrc reads the per-row cache
 // k/v (B, C, Hkv, D).  Both read K/V where they lie (no transpose, no
-// padding of D or of the block to TPU lane widths).  Head dims 16, 64 and
-// 128 (those of the ported configs and the tests) are instantiated; decode
-// is the same kernel launched with S = 1.
+// padding of D or of the block to TPU lane widths).  Head dims 16, 64, 128
+// and 256 (those of the ported configs and the tests; recurrentgemma-9b's
+// is 256, whose 32-key fp32 K+V tile alone is 64 KB, so it always takes the
+// >48 KB shared-memory path) are instantiated; decode is the same kernel
+// launched with S = 1.
 //
 // Semantics (exactly the reference's):
 //   * scale = 1/sqrt(D) of the real D (passed in by the wrapper);
@@ -488,6 +490,10 @@ int launch(const void* q, const int* q_pos, void* out, Src src, int B, int S,
                                            scale, stream);
     case 128:
       return launch_d<T, Src, 128>(q, q_pos, out, src, B, S, Hq, Hkv,
+                                            max_entries, M, causal, window,
+                                            scale, stream);
+    case 256:
+      return launch_d<T, Src, 256>(q, q_pos, out, src, B, S, Hq, Hkv,
                                             max_entries, M, causal, window,
                                             scale, stream);
     default:

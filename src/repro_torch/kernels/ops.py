@@ -1,10 +1,12 @@
-"""Model-facing attention entry points with the reference's routing
+"""Model-facing kernel entry points with the reference's routing
 (``kernels/ops.py``): a single causal query token goes to the decode
-kernel, anything else to the flash kernel.
+kernel, anything else to the flash kernel; the RG-LRU scan and the
+chunkwise mLSTM go to their kernels of ``csrc/recurrent.cu``.
 
 The reference's wrappers pad to 128 lanes and transpose to the kernels'
 layouts; the port's kernels read the model's layouts in place, so these
-wrappers only route.  Each callee launches its hand kernel for CUDA
+wrappers only route, and the two recurrent entry points are the kernel
+modules' own functions.  Each callee launches its hand kernel for CUDA
 tensors and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
@@ -13,7 +15,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import mlstm as mlstm_k
 from repro_torch.kernels import paged_attention as pa_k
+from repro_torch.kernels import rglru as rglru_k
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,12 +50,22 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                                       causal=causal, window=window)
 
 
+#: h_t = a_t h_{t-1} + b_t; a, b (B,S,W) fp32 -> (B,S,W) fp32, any S and W
+rglru_scan = rglru_k.rglru_scan
+#: q, k, v (B,S,H,Dh), gates (B,S,H) -> (B,S,H,Dh), in chunks of 128
+#: (the reference's default; it never reads ``cfg.mlstm_chunk``)
+mlstm_chunkwise = mlstm_k.mlstm_chunkwise
+
+
+_MODULES = (fa_k, dec_k, pa_k, rglru_k, mlstm_k)
+
+
 def reset_launches() -> None:
-    """Zero the launch counts of all four attention kernels."""
-    for mod in (fa_k, dec_k, pa_k):
+    """Zero the launch counts of all six token-path kernels."""
+    for mod in _MODULES:
         mod.reset_launches()
 
 
 def launches() -> dict:
-    """Launch counts of all four attention kernels, by name."""
-    return {**fa_k.LAUNCHES, **dec_k.LAUNCHES, **pa_k.LAUNCHES}
+    """Launch counts of all six token-path kernels, by name."""
+    return {k: n for mod in _MODULES for k, n in mod.LAUNCHES.items()}

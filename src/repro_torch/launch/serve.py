@@ -10,6 +10,9 @@ and this prints the per-class turnaround/skip table like the paper's §4.2.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --requests 12 --slots 4 --esd 2.0 [--device cpu]
+
+``--arch`` takes any ported arch (``starcoder2-3b``, ``recurrentgemma-9b``,
+``xlstm-350m``), each at its reduced size.
 """
 from __future__ import annotations
 

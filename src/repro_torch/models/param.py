@@ -2,12 +2,14 @@
 
 Models declare their parameters as trees (nested dicts/lists) of :class:`P`
 descriptors; :func:`init_tree` materialises a tree of tensors from them
-with one ``torch.Generator``.  Each leaf draws from its own generator,
-seeded from the caller's seed and a hash of the leaf's path, so adding a
-parameter never reshuffles the others (the reference folds the same path
-hash into its PRNG key).  The numbers differ from the reference's for the
-same seed — parity tests inject the reference's parameters through
-``repro_torch.convert`` instead.
+with one ``torch.Generator``.  Each leaf draws from its own generator on
+the target device, seeded from the caller's seed and a hash of the leaf's
+path, so adding a parameter never reshuffles the others (the reference
+folds the same path hash into its PRNG key).  The numbers differ from the
+reference's for the same seed, and between the host's and the card's
+generators — parity tests inject the reference's parameters through
+``repro_torch.convert`` instead, and card-vs-CPU comparisons draw on the
+host and move the tree with :func:`tree_to`.
 
 Sharding specs (``PartitionSpec`` trees) are not ported: the port runs on
 one card.
@@ -53,14 +55,13 @@ def _init_leaf(p: P, seed: int, path: str, default_dtype: str,
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.full(p.shape, p.scale, dtype=dtype, device=device)
-    g = torch.Generator().manual_seed(_leaf_seed(seed, path))
     if p.init == "embed":
         std = p.scale
     else:  # normal: lecun-style 1/sqrt(fan_in)
         std = p.scale / max(np.sqrt(_fan_in(p.shape)), 1.0)
-    # drawn on the CPU generator, then moved: the same seed gives the same
-    # weights on every device
-    x = torch.randn(p.shape, generator=g, dtype=torch.float32) * std
+    g = torch.Generator(device=device).manual_seed(_leaf_seed(seed, path))
+    x = torch.randn(p.shape, generator=g, dtype=torch.float32,
+                    device=device) * std
     return x.to(device=device, dtype=dtype)
 
 
@@ -76,8 +77,9 @@ def _map_with_path(tree: Any, fn, path: str = ""):
 def init_tree(ptree: Any, generator: torch.Generator,
               default_dtype: str = "float32",
               device: torch.device = torch.device("cpu")) -> Any:
-    """Materialise a descriptor tree.  ``generator`` supplies the base
-    seed (one draw); each leaf then uses its own path-keyed generator."""
+    """Materialise a descriptor tree on ``device``.  ``generator`` supplies
+    the base seed (one draw); each leaf then uses its own path-keyed
+    generator on ``device``."""
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
     return _map_with_path(
         ptree, lambda p, path: _init_leaf(p, seed, path, default_dtype,

@@ -1,17 +1,25 @@
-"""Model assembly for pure-attention stacks: params, caches, forward.
+"""Model assembly: params, caches, forward, for attention, RG-LRU and
+xLSTM stacks.
 
-Counterpart of the reference's ``models/transformer.py``, for the
-architectures whose every layer is plain attention (GQA, full or sliding
-window) with a dense MLP — ``starcoder2-3b`` among the ported configs.
-The reference groups layers into scanned segments of stacked parameters
-(``plan_layers``); the port runs its layers as a Python loop over
-per-layer parameter dicts (``params["layers"]``) and per-layer cache dicts
-(a list), with nothing stacked.  ``convert.transformer_from_jax`` unstacks
-a reference tree into this layout.
+Counterpart of the reference's ``models/transformer.py``, for dense
+attention stacks (GQA, full or sliding window, ``starcoder2-3b``), the
+hybrid RG-LRU + local-attention stack (``recurrentgemma-9b``) and the
+mLSTM + sLSTM stack (``xlstm-350m``).  The reference groups layers into
+scanned segments of stacked parameters (``plan_layers``; hybrid patterns
+become multi-position periods); the port runs its layers as a Python loop
+over per-layer parameter dicts (``params["layers"]``) and per-layer cache
+dicts (a list), with nothing stacked.  ``convert.transformer_from_jax``
+unstacks a reference tree into this layout.
 
-MoE, MLA, the recurrent block kinds (RG-LRU, mLSTM, sLSTM), encoder-
-decoder and VLM families raise ``NotImplementedError``: they come with
-``ROADMAP.md`` queue 1, item 11.
+Caches: an attention layer holds a contiguous ring or a paged pool
+(``models/attention.py``); a recurrent layer holds its state, ``{"h",
+"conv"}`` (RG-LRU), ``{"C", "n", "m"}`` (mLSTM) or ``{"c", "n", "h",
+"m"}`` (sLSTM).  :func:`init_caches` fills them with the reference's
+sentinels by leaf name (:func:`materialize_caches`): int leaves -1, every
+``m`` -1e30, a 2-D ``n`` 1.
+
+MoE, MLA, encoder-decoder and VLM families raise ``NotImplementedError``:
+they come with ``ROADMAP.md`` queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -19,9 +27,11 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.config import ATTN, ModelConfig
+from repro_torch.config import ATTN, MLSTM, RGLRU, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_params,
                                        embed_tokens, mlp_params, norm_params,
@@ -70,14 +80,14 @@ def plan_layers(cfg: ModelConfig):
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     kinds = set(cfg.layer_kinds())
-    if (kinds != {ATTN} or cfg.moe.enabled or cfg.attention == "mla"
-            or cfg.family in ("encdec", "vlm")):
+    if (not kinds <= {ATTN, RGLRU, MLSTM, SLSTM} or cfg.moe.enabled
+            or cfg.attention == "mla" or cfg.family in ("encdec", "vlm")):
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, layers "
             f"{sorted(kinds)}, attention {cfg.attention!r}, MoE "
-            f"{cfg.moe.enabled}) is not ported yet: only pure-attention "
-            f"dense stacks run; the others come with ROADMAP.md queue 1, "
-            f"item 11")
+            f"{cfg.moe.enabled}) is not ported yet: dense attention, RG-LRU "
+            f"and xLSTM stacks run; the others come with ROADMAP.md queue "
+            f"1, item 11")
 
 
 # ---------------------------------------------------------------------------
@@ -85,12 +95,26 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_params(cfg: ModelConfig) -> dict:
-    p = {"ln1": norm_params(cfg), "attn": attn_mod.attn_params(cfg)}
-    if cfg.d_ff > 0:
-        if not cfg.parallel_block:
+def _block_params(cfg: ModelConfig, kind: str) -> dict:
+    p = {"ln1": norm_params(cfg)}
+    if kind == ATTN:
+        p["attn"] = attn_mod.attn_params(cfg)
+        if cfg.d_ff > 0:
+            if not cfg.parallel_block:
+                p["ln2"] = norm_params(cfg)
+            p["mlp"] = mlp_params(cfg)
+    elif kind == RGLRU:
+        p["mix"] = rglru_mod.rglru_params(cfg)
+        if cfg.d_ff:
             p["ln2"] = norm_params(cfg)
-        p["mlp"] = mlp_params(cfg)
+            p["mlp"] = mlp_params(cfg)
+    elif kind == MLSTM:
+        p["mix"] = ssm_mod.mlstm_params(cfg)
+    elif kind == SLSTM:
+        p["mix"] = ssm_mod.slstm_params(cfg)
+        p["ln2"] = norm_params(cfg)
+    else:
+        raise ValueError(kind)
     return p
 
 
@@ -98,14 +122,14 @@ def model_param_tree(cfg: ModelConfig) -> dict:
     """Descriptor tree: ``{"embed", "final_norm", "layers": [per layer]}``."""
     check_supported(cfg)
     return {"embed": embed_params(cfg), "final_norm": norm_params(cfg),
-            "layers": [_block_params(cfg) for _ in range(cfg.num_layers)]}
+            "layers": [_block_params(cfg, kind)
+                       for kind in cfg.layer_kinds()]}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
-    """Random weights from ``generator``'s seed, on the card unless
-    ``device="cpu"``.  Each leaf is drawn on the host and then moved
-    (``param.init_tree``), so a seed gives the same weights on every
-    device."""
+    """Random weights from ``generator``'s seed, drawn on the card unless
+    ``device="cpu"`` (``param.init_tree``: the host and the card give
+    other numbers for one seed)."""
     return init_tree(model_param_tree(cfg), generator, cfg.param_dtype,
                      resolve_device(device))
 
@@ -115,13 +139,47 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 # ---------------------------------------------------------------------------
 
 
+def _block_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
+                        capacity: int) -> dict:
+    if kind == ATTN:
+        return attn_mod.cache_shapes(cfg, batch, capacity)
+    if kind == RGLRU:
+        return rglru_mod.cache_shapes(cfg, batch)
+    if kind == MLSTM:
+        return ssm_mod.mlstm_cache_shapes(cfg, batch)
+    if kind == SLSTM:
+        return ssm_mod.slstm_cache_shapes(cfg, batch)
+    raise ValueError(kind)
+
+
+def materialize_caches(shapes: dict, device) -> dict:
+    """Empty cache leaves from ``{name: (shape, dtype)}``, with the
+    reference's sentinels by leaf name (its ``_materialize_caches``): int
+    leaves -1 (empty slot), every ``m`` -1e30 (log-sum-exp identity), a
+    2-D ``n`` 1 (sLSTM normaliser floor), the rest 0."""
+    out = {}
+    for name, (shape, dt) in shapes.items():
+        if dt == torch.int32:
+            fill = -1
+        elif name == "m":
+            fill = -1e30
+        elif name == "n" and len(shape) == 2:
+            fill = 1.0
+        else:
+            fill = 0
+        out[name] = torch.full(shape, fill, dtype=dt, device=device)
+    return out
+
+
 def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 device=None) -> List[dict]:
-    """Empty contiguous (per-slot ring) caches, one dict per layer."""
+    """Empty contiguous caches, one dict per layer: attention rings and
+    recurrent states, on the card unless ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [attn_mod.init_cache(cfg, batch, capacity, device=dev)
-            for _ in range(cfg.num_layers)]
+    return [materialize_caches(
+        _block_cache_shapes(cfg, kind, batch, capacity), dev)
+        for kind in cfg.layer_kinds()]
 
 
 def paged_eligible(cfg: ModelConfig) -> bool:
@@ -152,23 +210,45 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
-                 cache, cache_index, fill_cache, cache_capacity, pages,
-                 opts: RunOpts):
-    """One attention block.  Returns (x, new_cache)."""
+def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
+                 positions, cache, cache_index, fill_cache, cache_capacity,
+                 pages, opts: RunOpts):
+    """One block.  Returns (x, new_cache)."""
     xn = apply_norm(cfg, p["ln1"], x)
-    a_out, ncache = attn_mod.attn_apply(
-        cfg, p["attn"], xn, positions=positions, cache=cache,
-        cache_index=cache_index, causal=True, fill_cache=fill_cache,
-        cache_capacity=cache_capacity, pages=pages, opts=opts)
-    has_mlp = cfg.d_ff > 0
-    if cfg.parallel_block and has_mlp:
-        x = x + a_out + apply_mlp(cfg, p["mlp"], xn)
-    else:
-        x = x + a_out
-        if has_mlp:
+    if kind == ATTN:
+        a_out, ncache = attn_mod.attn_apply(
+            cfg, p["attn"], xn, positions=positions, cache=cache,
+            cache_index=cache_index, causal=True, fill_cache=fill_cache,
+            cache_capacity=cache_capacity, pages=pages, opts=opts)
+        has_mlp = cfg.d_ff > 0
+        if cfg.parallel_block and has_mlp:
+            x = x + a_out + apply_mlp(cfg, p["mlp"], xn)
+        else:
+            x = x + a_out
+            if has_mlp:
+                x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        return x, ncache
+    if kind == RGLRU:
+        mix, ncache = rglru_mod.rglru_block_apply(
+            cfg, p["mix"], xn, cache=cache, fill_cache=fill_cache,
+            use_kernel=opts.use_kernels)
+        x = x + mix
+        if cfg.d_ff:
             x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-    return x, ncache
+        return x, ncache
+    if kind == MLSTM:
+        mix, ncache = ssm_mod.mlstm_block_apply(
+            cfg, p["mix"], xn, cache=cache, fill_cache=fill_cache,
+            use_kernel=opts.use_kernels)
+        return x + mix, ncache
+    if kind == SLSTM:
+        mix, ncache = ssm_mod.slstm_mixer_apply(cfg, p["mix"], xn,
+                                                cache=cache,
+                                                fill_cache=fill_cache)
+        x = x + mix
+        x = x + ssm_mod.slstm_ffn_apply(p["mix"], apply_norm(cfg, p["ln2"], x))
+        return x, ncache
+    raise ValueError(kind)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -189,8 +269,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     check_supported(cfg)
     B, S = tokens.shape
     if positions is None:
+        # materialised (not a stride-0 view): the kernels take contiguous
+        # position rows
         positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
+                                 device=tokens.device).repeat(B, 1)
     if pages is not None and caches is not None:
         # where the new K/V land is the same for every layer
         kp = caches[0]["kp"]
@@ -199,9 +281,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     x = embed_tokens(cfg, params["embed"], tokens)
     want_cache = caches is not None or fill_cache
     new_caches: Optional[list] = [] if want_cache else None
-    for i, p in enumerate(params["layers"]):
+    for i, (kind, p) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
         x, nc = _apply_block(
-            cfg, p, x, positions=positions,
+            cfg, kind, p, x, positions=positions,
             cache=caches[i] if caches is not None else None,
             cache_index=cache_index, fill_cache=fill_cache,
             cache_capacity=cache_capacity, pages=pages, opts=opts)

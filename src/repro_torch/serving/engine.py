@@ -3,7 +3,8 @@
 Counterpart of the reference's ``serving/engine.py``: a chunked-prefill-
 and-decode workload shell over the shared :class:`EngineCore` (the same
 substrate the vision engine rides).  The engine owns ``slots`` decode lanes
-(slot = one request's KV cache row).  Each request is
+(slot = one request's cache row: KV ring and, for the RG-LRU and xLSTM
+stacks, recurrent state).  Each request is
 
   1. *segmented* — its prompt is prefilled in descending power-of-two
      chunks (the paper's segmentation as chunked prefill),
@@ -26,6 +27,11 @@ KV layout: contiguous per-slot rings (``paged=False``) or the paged block
 pool (the default wherever ``transformer.paged_eligible`` holds), with a
 host-side :class:`BlockPool` and a per-slot block table; a sliding-window
 arch rings at block granularity, ``ceil((window-1)/bs) + 1`` columns.
+Stacks with recurrent layers (recurrentgemma-9b, xlstm-350m) are
+contiguous only: each admission prefills a fresh 1-row ``init_caches``
+row (sentinels included) and ``insert_row`` copies its dict states in at
+batch axis 0.  Prompts are never padded: a padded tail would corrupt the
+recurrent state.
 
 The reference compiles four jitted dispatch functions, shared by every
 engine of one (cfg, opts, sample); PyTorch runs eagerly, so here they are

@@ -18,7 +18,9 @@ from repro_torch.data.synthetic import frame_loop
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import mlstm as mlstm_k
 from repro_torch.kernels import paged_attention as pa_k
+from repro_torch.kernels import rglru as rglru_k
 from repro_torch.kernels import vision_ops as tvo
 from repro_torch.models import transformer as TT
 from repro_torch.models.attention import RunOpts
@@ -28,6 +30,7 @@ from repro_torch.streams import INNER, OUTER, VisionServeEngine
 
 TIGHT = dict(rtol=2e-5, atol=2e-5)
 LOOSE = dict(rtol=2e-2, atol=2e-2)
+MLSTM_TOL = dict(rtol=3e-4, atol=3e-4)   # tests/test_kernels.py's limit
 
 
 @pytest.fixture(scope="session")
@@ -37,7 +40,7 @@ def built():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
     from repro_torch.kernels import build
-    for name in ("vision_ops", "attention"):
+    for name in ("vision_ops", "attention", "recurrent"):
         build.load(name)
 
 
@@ -133,14 +136,17 @@ def test_staging_buffer_waits_for_its_upload(dev):
 @pytest.mark.cuda
 def test_engine_on_card_matches_cpu(dev, no_tf32):
     """The kernel path on the card and the plain path on the CPU, same
-    weights and frames: identical per-stream counts and flags."""
-    out = {}
-    for device in ("cuda", "cpu"):
+    weights (drawn on the host, then moved) and frames: identical
+    per-stream counts and flags."""
+    out, params = {}, None
+    for device in ("cpu", "cuda"):
         tvo.reset_launches()
         eng = VisionServeEngine(
             "e", slots=4, frame_res=64, input_res=32, use_kernels=True,
             clock=VirtualClock(rates={FRAME: 0.004, TICK: 0.0002}),
-            generator=torch.Generator().manual_seed(3), device=device)
+            generator=torch.Generator().manual_seed(3), params=params,
+            device=device)
+        params = (eng.dp, eng.pp)
         for i in range(4):
             eng.open_stream(f"s{i}", OUTER if i % 2 == 0 else INNER)
             at = frame_loop(i, res=64, frames=12)
@@ -322,5 +328,148 @@ def test_token_engine_on_card_matches_cpu(dev):
             assert streams["cuda"] == streams["cpu"]
         assert set(launches) == {"flash", "decode", "paged_flash",
                                  "paged_decode"}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+def test_attention_kernels_at_head_dim_256(dev):
+    """recurrentgemma-9b's heads: D = 256, Hq 16 over one kv head (G 16),
+    all four kernels, fp32 TIGHT and bf16 LOOSE, with and without a
+    window; more than 48 KB of shared memory at any length."""
+    for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+        for S in (1, 9):
+            for window in (0, 8):
+                c = _attn_case(7, [12, 70], S, 16, 1, 256, 16, 6, dtype)
+                for got, want in _run_all(c, window, dev):
+                    torch.testing.assert_close(got.float().cpu(),
+                                               want.float().cpu(), **tol)
+
+
+# ---------------------------------------------------------------------------
+# recurrent kernels (RG-LRU scan, chunkwise mLSTM)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W,with_h0", [(1, 128, 4096, True),
+                                           (2, 37, 1000, False),
+                                           (3, 1, 77, True)])
+def test_rglru_kernel_matches_plain_exactly(dev, B, S, W, with_h0):
+    """Bit-identical to the plain version (products and sums rounded
+    separately): the main path's chunk (S 128, W 4096), S not a multiple
+    of the unroll, W not a multiple of the block, one step."""
+    rng = np.random.default_rng(B * 1000 + S)
+    a = torch.from_numpy(rng.uniform(0.2, 0.999, (B, S, W)).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(size=(B, S, W)).astype(np.float32)).to(dev)
+    h0 = (torch.from_numpy(rng.normal(size=(B, W)).astype(np.float32)).to(dev)
+          if with_h0 else None)
+    rglru_k.reset_launches()
+    got = rglru_k.rglru_scan(a, b, h0)
+    assert rglru_k.LAUNCHES["rglru_scan"] == 1
+    assert torch.equal(got, rglru_k.rglru_scan_plain(a, b, h0))
+
+
+def _mlstm_inputs(B, S, H, Dh, dtype, dev, seed, i_shift=0.0):
+    rng = np.random.default_rng(seed)
+    qkv = [torch.from_numpy(rng.normal(size=(B, S, H, Dh)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3)]
+    ig = torch.from_numpy((rng.normal(size=(B, S, H)) + i_shift).astype(
+        np.float32)).to(dev)
+    fg = torch.from_numpy((rng.normal(size=(B, S, H)) + 2.0).astype(
+        np.float32)).to(dev)
+    return (*qkv, ig, fg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Dh,i_shift", [
+    (4, 512, 4, 512, 0.0),        # xlstm-350m prefill: BH 16, Dh 512
+    (1, 200, 2, 64, 0.0),         # a ragged last chunk
+    (2, 37, 3, 48, 0.0),          # one short chunk, Dh not a multiple of 32
+    (1, 300, 2, 32, -40.0),       # strongly negative input gate
+])
+def test_mlstm_kernel_matches_plain(dev, dtype, B, S, H, Dh, i_shift):
+    """The chunkwise kernel against the quadratic plain form: fp32 at
+    3e-4 (the reference's limit), bf16 at LOOSE."""
+    x = _mlstm_inputs(B, S, H, Dh, dtype, dev, S + Dh, i_shift)
+    mlstm_k.reset_launches()
+    got = mlstm_k.mlstm_chunkwise(*x)
+    assert mlstm_k.LAUNCHES["mlstm_chunkwise"] == 1
+    want = mlstm_k.mlstm_chunkwise_plain(*x)
+    assert got.dtype == want.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               **(MLSTM_TOL if dtype == torch.float32
+                                  else LOOSE))
+
+
+@pytest.mark.cuda
+def test_recurrent_kernels_refuse_what_they_do_not_take(dev):
+    """A CUDA tensor the kernel refuses raises; it never falls back."""
+    a = torch.rand(1, 4, 8, device=dev)
+    with pytest.raises(TypeError):
+        rglru_k.rglru_scan(a.double(), a.double())
+    with pytest.raises(ValueError):
+        rglru_k.rglru_scan(a, a.cpu())
+    with pytest.raises(ValueError):
+        rglru_k.rglru_scan(a[:, :, ::2], a[:, :, ::2])
+    x = _mlstm_inputs(1, 4, 1, 640, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        mlstm_k.mlstm_chunkwise(*x)
+    x = _mlstm_inputs(1, 4, 1, 16, torch.float16, dev, 0)
+    with pytest.raises(TypeError):
+        mlstm_k.mlstm_chunkwise(*x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_recurrent_engines_on_card_match_cpu(dev, arch):
+    """Reduced configs (fp32): the kernels on the card and the plain
+    versions on the CPU give the same token streams through ServeEngine,
+    and the same ``prefill`` logits; the card runs launched the arch's
+    kernels (the RG-LRU scan in served prefill chunks, the mLSTM in
+    ``prefill``)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch(arch).reduced()
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 23, 12, 9)]
+        streams, logits, launches = {}, {}, {}
+        opts = RunOpts(use_kernels=True)
+        for device in ("cuda", "cpu"):
+            p = params if device == "cpu" else tree_to(params, dev)
+            kops.reset_launches()
+            eng = ServeEngine(cfg, p, slots=2, cache_capacity=48,
+                              prefill_chunk=8, opts=opts, device=device,
+                              clock=VirtualClock(rates={TOKEN: 0.002,
+                                                        PREFILL: 0.0005}))
+            for i, pr in enumerate(prompts):
+                eng.submit(Request(rid=f"r{i}", tokens=pr, max_new_tokens=6,
+                                   priority=i % 2))
+            streams[device] = {r.rid: r.generated for r in eng.run()}
+            toks = torch.as_tensor(np.stack([prompts[1][:20], prompts[1][3:]]),
+                                   dtype=torch.long, device=device)
+            first, caches = TT.prefill(cfg, p, toks, cache_capacity=32,
+                                       opts=opts)
+            # a 2-token chunk continuing both rows' prefilled state (B 2:
+            # the RG-LRU scan takes the cached h as h0)
+            pos = torch.tensor([[20, 21]] * 2, dtype=torch.int32,
+                               device=device)
+            more, _, _ = TT.forward(cfg, p, toks[:, :2], positions=pos,
+                                    caches=caches, cache_index=20, opts=opts)
+            logits[device] = torch.cat([first, more], dim=1)
+            launches[device] = {k: n for k, n in kops.launches().items() if n}
+        assert streams["cuda"] == streams["cpu"]
+        torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"],
+                                   rtol=1e-3, atol=1e-3)
+        want = ({"rglru_scan", "flash", "decode"} if arch.startswith("rec")
+                else {"mlstm_chunkwise"})
+        assert set(launches["cuda"]) == want and not launches["cpu"]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old

@@ -92,6 +92,48 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert eng.batches["outer"].device.type == "cpu"
 
 
+def test_recurrent_entry_points_default_to_the_card(monkeypatch):
+    """The recurrent and hybrid constructors raise without a card unless
+    asked for the CPU; the RG-LRU and mLSTM wrappers take CPU tensors
+    without being asked (their plain versions) and launch nothing."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import mlstm as mlstm_k
+    from repro_torch.kernels import rglru as rglru_k
+    from repro_torch.models import rglru as TR
+    from repro_torch.models import ssm as TS
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("recurrentgemma-9b", "xlstm-350m"):
+        cfg = get_arch(arch).reduced()
+        for init in (lambda **kw: TT.init_caches(cfg, 2, 16, **kw),
+                     lambda **kw: TT.init_params(
+                         cfg, torch.Generator().manual_seed(0), **kw),
+                     lambda **kw: TR.init_rglru_cache(cfg, 2, **kw),
+                     lambda **kw: TS.init_mlstm_state(cfg, 2, **kw),
+                     lambda **kw: TS.init_slstm_state(cfg, 2, **kw)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                init()
+            assert init(device="cpu")
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServeEngine(cfg, params)
+        eng = ServeEngine(cfg, params, device="cpu")
+        assert eng.device.type == "cpu" and not eng.paged
+        assert all(t.device.type == "cpu" for layer in eng.caches
+                   for t in layer.values())
+    rglru_k.reset_launches()
+    mlstm_k.reset_launches()
+    a = torch.rand(1, 5, 8)
+    assert rglru_k.rglru_scan(a, a, a[:, 0]).device.type == "cpu"
+    q = torch.rand(1, 5, 2, 8)
+    g = torch.rand(1, 5, 2)
+    assert mlstm_k.mlstm_chunkwise(q, q, q, g, g).device.type == "cpu"
+    assert rglru_k.LAUNCHES == {"rglru_scan": 0}
+    assert mlstm_k.LAUNCHES == {"mlstm_chunkwise": 0}
+
+
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
     """No CUDA here: non-zero exit and no result line.  Alone in a
     directory: the same."""

@@ -27,7 +27,7 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import convert
-from repro_torch.config import MoEConfig, get_arch
+from repro_torch.config import MLAConfig, MoEConfig, get_arch
 from repro_torch.kernels import attention_common as ac
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
@@ -317,12 +317,14 @@ def test_forward_matches_reference(model, mode):
 
 
 def test_unported_architectures_raise():
-    """MoE, MLA, recurrent kinds and encoder-decoder name the slice that
-    brings them; paged eligibility matches the reference's rule."""
+    """MoE, MLA and encoder-decoder name the slice that brings them (the
+    recurrent kinds are ported: ``test_torch_recurrent_models.py``); paged
+    eligibility matches the reference's rule."""
     base = get_arch(ARCH).reduced()
     for cfg in (dataclasses.replace(base, moe=MoEConfig(num_experts=4,
                                                         top_k=2)),
-                dataclasses.replace(base, block_pattern=("rglru", "attn")),
+                dataclasses.replace(base, attention="mla",
+                                    mla=MLAConfig()),
                 dataclasses.replace(base, family="encdec")):
         with pytest.raises(NotImplementedError, match="item 11"):
             TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

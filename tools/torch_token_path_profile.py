@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's token path spends its time, on one NVIDIA card.
 
-    python3 tools/torch_token_path_profile.py
+    python3 tools/torch_token_path_profile.py [--arch recurrentgemma-9b]
 
-1. Attention kernels alone: each of the four kernels at the token path's
-   head shapes (starcoder2-3b: Hq 24, Hkv 2, D 128, bf16, block 16, 257
-   table columns, contiguous capacity 2048) over a sweep of live lengths,
-   device time per call with a cold L2.  The slope over the live length is
-   the cost of one 32-key tile; the intercept the fixed cost of a call.
+1. Attention kernels alone (starcoder2-3b only): each of the four kernels
+   at the token path's head shapes (Hq 24, Hkv 2, D 128, bf16, block 16,
+   257 table columns, contiguous capacity 2048) over a sweep of live
+   lengths, device time per call with a cold L2.  The slope over the live
+   length is the cost of one 32-key tile; the intercept the fixed cost of
+   a call.
 2. The token main path that ``chip_smoke.py`` serves (``ServeEngine`` on
-   full-width, full-depth starcoder2-3b, slots 8, paged, 16 requests of
-   33-1000 prompt tokens, 32 new tokens each): host time per phase from a
-   ``SpanTracer`` (``prefill`` and ``decode`` end in a device sync, so
-   they include the device work), then one more drain under
-   ``torch.profiler``: device time per kernel, summed by name, and the
-   device's busy share of the drain's wall time.
+   the full-width, full-depth arch, slots 8, 16 requests of 33-1000
+   prompt tokens, 32 new tokens each; starcoder2-3b paged,
+   recurrentgemma-9b contiguous): host time per phase from a ``SpanTracer``
+   (``prefill`` and ``decode`` end in a device sync, so they include the
+   device work), then one more drain under ``torch.profiler``: device time
+   per kernel, summed by name, and the device's busy share of the drain's
+   wall time.
+3. A decode window: 8 requests admitted at once, then 16 decode-only ticks
+   under ``torch.profiler``: host ms per tick, device busy ms per tick and
+   the device time per tick by kernel.
 
-Prints the card's name and power limit and one JSON summary line.  Needs a
-card; exits non-zero without one.
+The random weights are drawn on the card from a seed, as ``chip_smoke.py``
+phases 7 and 10 draw them.  Prints the card's name
+and power limit and one JSON summary line.  Needs a card; exits non-zero
+without one.
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import os
@@ -130,14 +138,19 @@ def requests(Request, vocab, n, new, prompt, seed):
             for i, L in enumerate(lens)]
 
 
-def serve(torch, cfg, params, reqs, dev, tracer=None):
-    """Drain fresh copies of ``reqs`` through a paged ServeEngine on the
-    card; returns the drain's wall seconds."""
+def engine(cfg, params, dev):
+    """A ServeEngine on the card: paged wherever the arch allows it."""
     from repro_torch.models.attention import RunOpts
     from repro_torch.serving import ServeEngine
-    eng = ServeEngine(cfg, params, slots=SLOTS, cache_capacity=CAPACITY,
-                      prefill_chunk=CHUNK, block_size=BLOCK, paged=True,
-                      opts=RunOpts(use_kernels=True), device=dev)
+    return ServeEngine(cfg, params, slots=SLOTS, cache_capacity=CAPACITY,
+                       prefill_chunk=CHUNK, block_size=BLOCK,
+                       opts=RunOpts(use_kernels=True), device=dev)
+
+
+def serve(torch, cfg, params, reqs, dev, tracer=None):
+    """Drain fresh copies of ``reqs`` through a ServeEngine on the card;
+    returns the drain's wall seconds."""
+    eng = engine(cfg, params, dev)
     if tracer is not None:
         eng.attach_obs(tracer=tracer)
     for r in reqs:
@@ -148,7 +161,46 @@ def serve(torch, cfg, params, reqs, dev, tracer=None):
     return time.perf_counter() - t0
 
 
-def main() -> int:
+def device_ms(torch, prof) -> dict:
+    """Device time by kernel name (ms) from a profile: device-side events
+    only (kernels, copies); a CPU op's device time repeats the kernels it
+    launched."""
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = (kernels.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3)
+    return kernels
+
+
+def decode_window(torch, cfg, params, reqs, dev, ticks=16):
+    """Admit SLOTS requests in one tick, then profile ``ticks`` decode-only
+    ticks.  Returns (host ms per tick, {kernel: device ms per tick})."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = engine(cfg, params, dev)
+    for r in reqs[:SLOTS]:
+        r = copy.deepcopy(r)
+        r.max_new_tokens = ticks + 4             # no one retires in the window
+        eng.submit(r)
+    eng.step()                                  # admissions + first decode
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall * 1e3 / ticks, {k: ms / ticks
+                                for k, ms in device_ms(torch, prof).items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2-3b",
+                    choices=("starcoder2-3b", "recurrentgemma-9b"))
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_token_path_profile: needs an NVIDIA card",
@@ -164,10 +216,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
-    build.build("attention")
-    sweep = kernel_sweep(torch, dev)
+    for name in ("attention", "recurrent"):
+        build.build(name)
+    sweep = kernel_sweep(torch, dev) if args.arch == "starcoder2-3b" else None
 
-    cfg = get_arch("starcoder2-3b")
+    cfg = get_arch(args.arch)
     params = TT.init_params(cfg, torch.Generator().manual_seed(SEED),
                             device=dev)
     reqs = requests(Request, cfg.vocab_size, REQUESTS, NEW, PROMPT, SEED)
@@ -180,21 +233,15 @@ def main() -> int:
         phases[name] = {"ms": sum(e["dur"] for e in spans) / 1e3,
                         "count": len(spans)}
     for name, p in phases.items():
-        print(f"host phase {name}: {p['ms']:.1f} ms in {p['count']} spans "
-              f"({p['ms'] / max(p['count'], 1):.3f} ms each) of a "
-              f"{wall * 1e3:.1f} ms drain on {card}", flush=True)
+        print(f"{cfg.name} host phase {name}: {p['ms']:.1f} ms in "
+              f"{p['count']} spans ({p['ms'] / max(p['count'], 1):.3f} ms "
+              f"each) of a {wall * 1e3:.1f} ms drain on {card}", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_wall = serve(torch, cfg, params, reqs, dev)
-    # device-side events only (kernels, copies): a CPU op's device time
-    # repeats the kernels it launched
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = (kernels.get(e.key, 0.0)
-                              + e.self_device_time_total / 1e3)
+    kernels = device_ms(torch, prof)
     if not kernels:
         print("the profiler saw no device event", file=sys.stderr)
         return 1
@@ -205,12 +252,24 @@ def main() -> int:
           flush=True)
     for name, ms in top:
         print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
+
+    tick_ms, per_tick = decode_window(torch, cfg, params, reqs, dev)
+    tick_busy = sum(per_tick.values())
+    tick_top = sorted(per_tick.items(), key=lambda kv: -kv[1])[:12]
+    print(f"decode window ({SLOTS} slots, profiled): {tick_ms:.3f} ms per "
+          f"tick on the host, device busy {tick_busy:.3f} ms per tick "
+          f"({100 * tick_busy / tick_ms:.1f} %)", flush=True)
+    for name, ms in tick_top:
+        print(f"  {ms:9.4f} ms/tick  {name[:100]}", flush=True)
     print(card, flush=True)
     print(json.dumps({
-        "card": card, "layers": cfg.num_layers, "sweep_ms": sweep,
-        "host_phases": phases, "drain_s": wall, "profiled_drain_s": prof_wall,
-        "device_busy_ms": busy,
-        "device_top_ms": {name[:100]: ms for name, ms in top}}), flush=True)
+        "card": card, "arch": cfg.name, "layers": cfg.num_layers,
+        "sweep_ms": sweep, "host_phases": phases, "drain_s": wall,
+        "profiled_drain_s": prof_wall, "device_busy_ms": busy,
+        "device_top_ms": {name[:100]: ms for name, ms in top},
+        "decode_tick_ms": tick_ms, "decode_tick_busy_ms": tick_busy,
+        "decode_tick_top_ms": {name[:100]: ms for name, ms in tick_top}}),
+        flush=True)
     return 0
 
 
