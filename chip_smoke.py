@@ -7,9 +7,11 @@ Phases (any failure exits non-zero; nothing is swallowed; each prints its
 wall seconds):
 
   1. build     compile ``src/repro_torch/kernels/csrc/vision_ops.cu``,
-               ``attention.cu`` and ``recurrent.cu`` with nvcc for sm_90a,
-               one nvcc per source, started together; print the build
-               times and the card's name and power limit.
+               ``attention.cu``, ``decode_attention.cu`` and
+               ``recurrent.cu`` with nvcc for sm_90a, one nvcc per source,
+               started together; print the build times, the card's name
+               and power limit, and each decode kernel instance's
+               registers and spills from the ``-Xptxas -v`` report.
   2. kernels   hold each vision kernel against its plain PyTorch version on
                the card, at the main path's shapes and at edge shapes
                (uint8 frames, box resampling, g=20 with block=8, a bf16
@@ -31,7 +33,9 @@ wall seconds):
                frames: per-stream processed/gated/dropped counts and flags
                equal.
   6. attention the four attention kernels (paged decode, paged flash,
-               flash, decode) against their plain versions on the card: at
+               flash, decode; the two decode kernels from
+               ``decode_attention.cu``, the keys split over blocks) against
+               their plain versions on the card: at
                the token path's shapes (starcoder2-3b: Hq 24, Hkv 2, D 128,
                bf16, block 16, 257 table columns, live lengths 33-1000) and
                at edge shapes (fp32, MHA, D 64, window 8 over a wrapped
@@ -42,7 +46,10 @@ wall seconds):
                KV with a mask from the positions.  Then flash and decode
                at recurrentgemma-9b's heads (Hq 16, Hkv 1, D 256, window
                2048, contiguous capacity 2048): edge shapes, main shapes in
-               fp32 and bf16, and their times beside SDPA's.
+               fp32 and bf16, and their times beside SDPA's.  At each
+               timed decode shape: the split (keys per split, splits,
+               grid, shared memory per block), two calls bitwise equal,
+               and the times at 64, 128 and 256 keys per split.
   7. tokens    ``ServeEngine`` on full-width, full-depth starcoder2-3b
                (bf16, random weights drawn on the card from a seed),
                slots=8, capacity 2048, prefill chunk 128: 16 requests of
@@ -95,6 +102,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -122,7 +130,14 @@ ATTN_REPLACES = {
     "flash": "src/repro/kernels/flash_attention.py:35",
     "decode": "src/repro/kernels/decode_attention.py:26",
 }
-ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+ATTN_SOURCES = {
+    "paged_decode": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "paged_flash": "src/repro_torch/kernels/csrc/attention.cu",
+    "flash": "src/repro_torch/kernels/csrc/attention.cu",
+    "decode": "src/repro_torch/kernels/csrc/decode_attention.cu",
+}
+SPLIT_SWEEP = (64, 128, 256)          # keys per split, decode kernels
+DECODE_REGS = {}                      # (dtype, source, D): ptxas registers
 REC_REPLACES = {
     "rglru_scan": "src/repro/kernels/rglru.py:29",
     "mlstm_chunkwise": "src/repro/kernels/mlstm.py:36",
@@ -161,11 +176,13 @@ _FLUSH = []
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call of ``fn`` with a cold L2.  Before each
-    call a 1 GiB buffer is zeroed: that evicts the inputs from L2, so the
-    call reads them from HBM as the bound assumes, and it keeps the card
-    busy while the host enqueues the call, so the CUDA events around the
-    call time the device and not the launch."""
+    """Median device time of one call of ``fn`` with a cold L2.  Before
+    each call a 1 GiB buffer is zeroed: that evicts the inputs from L2, so
+    the call reads them from HBM as the bound assumes, and it keeps the
+    card busy while the host enqueues the call, so the CUDA events around
+    the call time the device and not the launch.  The median, not the
+    mean: a host stalled past the zeroing (~0.35 ms) leaves the card idle
+    between the events, and one such call moved a 0.02 ms mean 2.4x."""
     import torch
     if not _FLUSH:
         _FLUSH.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
@@ -180,7 +197,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
         end.record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in marks) / iters
+    return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
 def pixels_read(H: int, W: int, resolutions, method: str) -> int:
@@ -468,6 +485,71 @@ def attn_work(torch, q, q_pos, kv_pos, Hkv, window=0, table_bytes=0):
     return nbytes, 4 * D * Hq * pairs, valid
 
 
+def ptxas_decode_report(log: str) -> dict:
+    """{(dtype, source, D): (registers, spill bytes)} of the decode kernel
+    instances in an ``-Xptxas -v`` report."""
+    import re
+    out, key, spill = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*decode_kernelI"
+                      r"(13__nv_bfloat16|f)\S*?(PagedKV|ContigKV)\S*?Li(\d+)E",
+                      line)
+        if m:
+            key = ("bf16" if m.group(1) != "f" else "f32",
+                   "paged" if m.group(2) == "PagedKV" else "contiguous",
+                   int(m.group(3)))
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key] = (int(m.group(1)), spill)
+            key = None
+    return out
+
+
+def decode_report(torch, name, c, kern, capacity, label):
+    """Print a decode call's split, grid and per-block resources, and fail
+    unless two calls are bitwise equal."""
+    from repro_torch.kernels import attention_common as ac
+    B, _, Hq, D = c["q"].shape
+    Hkv = c["kp"].shape[2]
+    split_keys, splits = ac.decode_split(capacity)
+    tiles = -(-(Hq // Hkv) // ac.ROWS)
+    smem = ac.decode_smem_bytes(D, c["q"].dtype, split_keys)
+    dt = "bf16" if c["q"].dtype == torch.bfloat16 else "f32"
+    regs, spill = DECODE_REGS.get(
+        (dt, "paged" if name.startswith("paged") else "contiguous", D),
+        (None, None))
+    first, second = kern(), kern()
+    if not torch.equal(first, second):
+        fail(f"{name} {label}: two calls on the same inputs differ")
+    print(f"kernel {name} {label}: {splits} splits of {split_keys} keys over "
+          f"capacity {capacity}; grid ({splits}, {Hkv * tiles}, {B}) = "
+          f"{splits * Hkv * tiles * B} blocks of 128 threads, {smem} B "
+          f"dynamic shared memory, {regs} registers ({spill} B spilled) per "
+          f"block; two calls bitwise equal", flush=True)
+
+
+def split_sweep(torch, name, kern, label):
+    """Cold-L2 time of a decode call at each keys-per-split of
+    SPLIT_SWEEP (the default restored after)."""
+    from repro_torch.kernels import attention_common as ac
+    default, times = ac.SPLIT_KEYS, {}
+    try:
+        for keys in SPLIT_SWEEP:
+            ac.SPLIT_KEYS = keys
+            times[keys] = time_ms(kern)
+    finally:
+        ac.SPLIT_KEYS = default
+    print(f"kernel {name} {label}: keys per split -> cold-L2 ms "
+          + "  ".join(f"{k}: {t:.4f}" for k, t in times.items())
+          + f" (default {default})", flush=True)
+
+
 def check_attention(torch, dev):
     """Phase 6.  Returns {name: row} for the JSON line (launches filled in
     from the token paths)."""
@@ -561,8 +643,14 @@ def check_attention(torch, dev):
                    F.scaled_dot_product_attention(qT, kT, vT, attn_mask=mask,
                                                   enable_gqa=True))
             b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            if name.endswith("decode"):
+                cap = (c["tbl"].shape[1] * TOK_BLOCK if paged
+                       else c["k"].shape[1])
+                label = "at starcoder2-3b's heads"
+                decode_report(torch, name, c, kern, cap, label)
+                split_sweep(torch, name, kern, label)
             rows[name] = {
-                "name": name, "route": "cuda", "source": ATTN_SOURCE,
+                "name": name, "route": "cuda", "source": ATTN_SOURCES[name],
                 "replaces": ATTN_REPLACES[name], "launches": 0,
                 "max_abs_err": 0.0, "ms": time_ms(kern),
                 "plain_ms": time_ms(plain), "bound_ms": b_ms,
@@ -609,6 +697,11 @@ def check_attention(torch, dev):
                        F.scaled_dot_product_attention(
                            qT, kT, vT, attn_mask=mask, enable_gqa=True))
                 b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+                if name == "decode":
+                    label = "at D 256 (recurrentgemma-9b's heads)"
+                    decode_report(torch, name, c, kern, c["k"].shape[1],
+                                  label)
+                    split_sweep(torch, name, kern, label)
                 k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
                 print(f"kernel {name} at D 256 (recurrentgemma-9b: Hq 16, "
                       f"Hkv 1, window {rg_window}): B={c['q'].shape[0]} "
@@ -1087,7 +1180,7 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name), time.perf_counter() - t0
 
-    sources = ("vision_ops", "attention", "recurrent")
+    sources = ("vision_ops", "attention", "decode_attention", "recurrent")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         built = dict(zip(sources, pool.map(timed_build, sources)))
     for name, (lib, secs) in built.items():
@@ -1095,6 +1188,12 @@ def main() -> int:
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip(), flush=True)
+    log = built["decode_attention"][0].with_suffix(".log")
+    DECODE_REGS.update(ptxas_decode_report(log.read_text()
+                                           if log.exists() else ""))
+    for (dt, src, D), (regs, spill) in sorted(DECODE_REGS.items()):
+        print(f"decode kernel {dt} {src} D {D}: {regs} registers, {spill} "
+              f"B spilled", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 

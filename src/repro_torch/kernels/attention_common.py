@@ -1,11 +1,14 @@
-"""What the four attention kernels share: the library, the dispatch rule,
-the input checks and the plain masked attention.
+"""What the four attention kernels share: the libraries, the dispatch
+rule, the input checks, the decode kernels' split and workspace, and the
+plain masked attention.
 
-The kernels themselves live in ``csrc/attention.cu`` (one templated
-routine, four C entry points) and are built with ``nvcc`` for ``sm_90a``
-at first use (``kernels/build.py``).  Their wrappers, launch counts and
-plain versions are in ``flash_attention.py``, ``decode_attention.py`` and
-``paged_attention.py``.
+The kernels themselves live in two CUDA sources, each built with ``nvcc``
+for ``sm_90a`` at first use (``kernels/build.py``): ``csrc/attention.cu``
+(the two flash kernels, one templated routine) and
+``csrc/decode_attention.cu`` (the two decode kernels, one templated
+routine that splits the keys over the SMs).  Their wrappers, launch counts
+and plain versions are in ``flash_attention.py``, ``decode_attention.py``
+and ``paged_attention.py``.
 
 Dispatch rule: a CUDA tensor always goes to the hand kernel (or the call
 raises); a CPU tensor goes to the plain PyTorch version.  There is no
@@ -21,21 +24,36 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128, 256)  # instantiated in csrc/attention.cu
+HEAD_DIMS = (16, 64, 128, 256)  # instantiated in both CUDA sources
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = (
-    ("attn_flash", (_P,) * 6 + (_I,) * 8 + (_F, _I, _P)),
-    ("attn_decode", (_P,) * 6 + (_I,) * 6 + (_F, _I, _P)),
-    ("attn_paged_flash", (_P,) * 7 + (_I,) * 9 + (_F, _I, _P)),
-    ("attn_paged_decode", (_P,) * 7 + (_I,) * 7 + (_F, _I, _P)),
-)
+#: {source under csrc/: ((C entry point, argtypes), ...)}
+_LIBRARIES = {
+    "attention": (
+        ("attn_flash", (_P,) * 6 + (_I,) * 8 + (_F, _I, _P)),
+        ("attn_paged_flash", (_P,) * 7 + (_I,) * 9 + (_F, _I, _P)),
+    ),
+    "decode_attention": (
+        ("attn_decode", (_P,) * 8 + (_I,) * 7 + (_F, _I, _P)),
+        ("attn_paged_decode", (_P,) * 9 + (_I,) * 8 + (_F, _I, _P)),
+        ("attn_decode_smem", (_I,) * 3),
+    ),
+}
+_SOURCE_OF = {fn: src for src, sigs in _LIBRARIES.items() for fn, _ in sigs}
+
+# the decode kernels' split of the keys (csrc/decode_attention.cu)
+ROWS = 16            # query heads of a GQA group per block (kRows)
+SPLIT_QUANTUM = 64   # split sizes are multiples of this (kWarps * kChunk)
+SPLIT_KEYS = 128     # keys per split unless the capacity needs more
+MAX_SPLITS = 128     # kMaxSplits
 
 
 def launch(name: str, *args) -> None:
-    """Launch ``name`` of ``csrc/attention.cu`` (built at first use)."""
-    build.launch(build.bind("attention", _SIGNATURES), name, *args)
+    """Launch C entry point ``name`` of its ``csrc`` source (built at first
+    use)."""
+    src = _SOURCE_OF[name]
+    build.launch(build.bind(src, _LIBRARIES[src]), name, *args)
 
 
 def stream(t: torch.Tensor) -> int:
@@ -61,11 +79,12 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def check_aligned(*kv: torch.Tensor) -> None:
-    """The kernels read K/V rows as 8- and 16-byte vectors."""
-    for t in kv:
+def check_aligned(*ts: torch.Tensor) -> None:
+    """The kernels read K/V rows (and the decode kernels q rows) as 8- and
+    16-byte vectors."""
+    for t in ts:
         if t.data_ptr() % 16:
-            raise ValueError(f"K/V must be 16-byte aligned, got a tensor at "
+            raise ValueError(f"q/K/V must be 16-byte aligned, got a tensor at "
                              f"{t.data_ptr():#x}")
 
 
@@ -83,6 +102,62 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"Hkv={Hkv}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+
+
+def decode_split(capacity: int) -> tuple:
+    """(keys per split, splits) of a decode call over ``capacity`` logical
+    entries (C, or M * bs): SPLIT_KEYS, raised to a multiple of
+    SPLIT_QUANTUM where more than MAX_SPLITS splits would be needed.  From
+    the shapes alone, so the wrapper never waits for the card."""
+    keys = max(SPLIT_KEYS, -(-capacity // MAX_SPLITS))
+    keys = -(-keys // SPLIT_QUANTUM) * SPLIT_QUANTUM
+    return keys, max(1, -(-capacity // keys))
+
+
+def decode_smem_bytes(D: int, dtype: torch.dtype, split_keys: int) -> int:
+    """Dynamic shared memory of one decode block (builds the library)."""
+    lib = build.bind("decode_attention", _LIBRARIES["decode_attention"])
+    return lib.attn_decode_smem(D, split_keys, int(dtype == torch.bfloat16))
+
+
+_COUNTERS: dict = {}
+
+
+def decode_counters(device: torch.device, n: int = 0) -> torch.Tensor:
+    """The decode kernels' ticket counters on ``device``, at least ``n`` of
+    them: zeroed once and reused, as every call leaves them at 0 again.
+    One buffer per device assumes the calls on a device run on one
+    stream."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+def launch_decode(name: str, q: torch.Tensor, kv_ptrs: tuple, dims: tuple,
+                  Hkv: int, capacity: int, window: int) -> torch.Tensor:
+    """Launch ``attn_decode`` or ``attn_paged_decode`` on q (B,1,Hq,D):
+    ``kv_ptrs`` are the source's pointers after q, ``dims`` its sizes after
+    Hkv (C, or bs and M).  Allocates the output and the fp32 workspace of
+    the partials; returns the output."""
+    B, _, Hq, D = q.shape
+    split_keys, splits = decode_split(capacity)
+    slots = B * Hkv * -(-(Hq // Hkv) // ROWS)
+    ws = torch.empty(slots * splits * ROWS * (D + 2), dtype=torch.float32,
+                     device=q.device)
+    cnt = decode_counters(q.device, slots)
+    out = torch.empty_like(q)
+    launch(name, q.data_ptr(), *kv_ptrs, out.data_ptr(), ws.data_ptr(),
+           cnt.data_ptr(), B, Hq, Hkv, *dims, D, int(window), split_keys,
+           scale_of(D), int(q.dtype == torch.bfloat16), stream(q))
+    return out
+
+
+def check_int32_rows(rows: int) -> None:
+    """The decode kernels index K/V rows with 32-bit ints."""
+    if rows >= 2 ** 31:
+        raise ValueError(f"{rows} K/V entries do not fit 32-bit row indices")
 
 
 def as_i32(t: torch.Tensor) -> torch.Tensor:
@@ -134,3 +209,52 @@ def paged_gather_plain(kp: torch.Tensor, vp: torch.Tensor,
     pg = torch.where(tbl[:, :, None] >= 0, ppos[idx].long(),
                      torch.full_like(ppos[idx].long(), -1)).reshape(B, M * bs)
     return kg, vg, pg
+
+
+def split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                         split_keys: int, window: int = 0):
+    """The plain counterpart of the decode kernels' split blocks: the keys
+    cut into splits of ``split_keys`` logical entries, each split's
+    unnormalised online-softmax state for every query head.  q (B,1,Hq,D);
+    k/v (B,C,Hkv,D).  Returns fp32 (m (B,n,Hq), l (B,n,Hq), acc
+    (B,n,Hq,D)); a split with no valid key gives (-1e30, 0, 0).  Nothing on
+    the card's path calls it."""
+    B, _, Hq, D = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    n = max(1, -(-C // split_keys))
+    qg = q[:, 0].reshape(B, Hkv, G, D).float()
+    kp, qp = kv_pos.long(), q_pos.long()
+    valid = (kp >= 0) & (kp <= qp)
+    if window:
+        valid &= (qp - kp) < window
+    ms, ls, accs = [], [], []
+    for i in range(n):
+        sl = slice(i * split_keys, (i + 1) * split_keys)
+        s = torch.einsum("bkgd,bckd->bkgc", qg,
+                         k[:, sl].float()) / math.sqrt(D)
+        ok = valid[:, None, None, sl]
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        ms.append(m.reshape(B, Hq))
+        ls.append(p.sum(-1).reshape(B, Hq))
+        accs.append(torch.einsum("bkgc,bckd->bkgd", p, v[:, sl].float())
+                    .reshape(B, Hq, D))
+    return torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
+
+
+def merge_partials_plain(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """The plain counterpart of the decode kernels' merge: partials m, l
+    (..., n, R) and acc (..., n, R, D) of n splits, fp32, give m* = max m_i,
+    l = sum l_i e^(m_i - m*), acc = sum acc_i e^(m_i - m*) and out = acc /
+    max(l, 1e-30) (..., R, D); a row with no valid key in any split (every
+    l_i = 0, acc_i = 0) gives exactly 0.  Nothing on the card's path calls
+    it."""
+    m_star = m.amax(dim=-2, keepdim=True)
+    w = torch.exp(m - m_star)
+    l_sum = (l * w).sum(dim=-2)
+    a = (acc * w[..., None]).sum(dim=-3)
+    return a / l_sum.clamp(min=1e-30)[..., None]

@@ -1,22 +1,21 @@
-// Attention kernels for Hopper (sm_90a): paged decode, paged flash,
-// contiguous flash and contiguous decode.
+// Flash attention kernels for Hopper (sm_90a): paged and contiguous.
 //
-// Hand-written counterparts of four Pallas kernels of the reference:
+// Hand-written counterparts of two Pallas kernels of the reference:
 //
-//   attn_paged_decode  kernels/paged_attention.py  _paged_dec_kernel
 //   attn_paged_flash   kernels/paged_attention.py  _paged_fa_kernel
 //   attn_flash         kernels/flash_attention.py  _fa_kernel
-//   attn_decode        kernels/decode_attention.py _dec_kernel
 //
-// All four are one templated routine, attn_kernel<T, Src, kD>, over a
+// (The two decode kernels, attn_decode and attn_paged_decode, are in
+// decode_attention.cu: they split the keys over the SMs.)
+//
+// Both are one templated routine, attn_kernel<T, Src, kD>, over a
 // "KV source": PagedSrc reads the shared block pool kp/vp (nb, bs, Hkv, D)
 // through the block table tbl (B, M); ContigSrc reads the per-row cache
 // k/v (B, C, Hkv, D).  Both read K/V where they lie (no transpose, no
 // padding of D or of the block to TPU lane widths).  Head dims 16, 64, 128
 // and 256 (those of the ported configs and the tests; recurrentgemma-9b's
 // is 256, whose 32-key fp32 K+V tile alone is 64 KB, so it always takes the
-// >48 KB shared-memory path) are instantiated; decode is the same kernel
-// launched with S = 1.
+// >48 KB shared-memory path) are instantiated.
 //
 // Semantics (exactly the reference's):
 //   * scale = 1/sqrt(D) of the real D (passed in by the wrapper);
@@ -33,11 +32,8 @@
 // blocks.  A block owns one (batch row b, kv head hk) and a tile of up to
 // kMaxRows query rows, the rows enumerating (s, g) with the GQA group index
 // g fastest, so one K/V tile staged in shared memory serves every query
-// head of the group (q head = hk * G + g, the reference's h // G rule).
-//   * decode (S == 1): the G = Hq/Hkv heads of the group are the rows, one
-//     block per (b, hk) — B*Hkv blocks (16 at 8 slots for starcoder2-3b:
-//     most of the 132 SMs idle; splitting over key tiles is later work);
-//   * flash (S > 1): ceil(S*G / kMaxRows) row tiles per (b, hk).
+// head of the group (q head = hk * G + g, the reference's h // G rule):
+// ceil(S*G / kMaxRows) row tiles per (b, hk).
 //
 // Scalar prefetch becomes the block reading its own table row: the paged
 // prologue copies tbl[b, :] into shared memory and keeps the live columns
@@ -321,11 +317,11 @@ attn_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
       load_tile<T, kD>(src, b, hk, Hkv, tlist[it + 1], tmask, cols, tid, rk,
                        rv);
 
-    // Warp w owns rows w and w + kWarps: with few blocks in flight (decode
-    // has B*Hkv), many warps per block hide each other's latency; 8 warps
-    // of two rows ran faster on the token path's shapes than 4 of four or
-    // 16 of one.  A warp whose rows are all past nrows only helps stage
-    // (warp-uniform skip).
+    // Warp w owns rows w and w + kWarps: with few blocks in flight, many
+    // warps per block hide each other's latency; 8 warps of two rows ran
+    // faster on the token path's shapes than 4 of four or 16 of one.  A
+    // warp whose rows are all past nrows only helps stage (warp-uniform
+    // skip).
     if (warp < nrows) {
       const int p = kpos[lane];
       bool valid[kRowsPerWarp];
@@ -473,35 +469,34 @@ int launch_d(const void* q, const int* q_pos, void* out, Src src, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename Src, bool kDecode>
+template <typename T, typename Src>
 int launch(const void* q, const int* q_pos, void* out, Src src, int B, int S,
            int Hq, int Hkv, int D, int max_entries, int M, int causal,
            int window, float scale, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || (kDecode && S != 1))
+  if (Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 16:
       return launch_d<T, Src, 16>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                           max_entries, M, causal, window,
-                                           scale, stream);
+                                  max_entries, M, causal, window, scale,
+                                  stream);
     case 64:
       return launch_d<T, Src, 64>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                           max_entries, M, causal, window,
-                                           scale, stream);
+                                  max_entries, M, causal, window, scale,
+                                  stream);
     case 128:
       return launch_d<T, Src, 128>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                            max_entries, M, causal, window,
-                                            scale, stream);
+                                   max_entries, M, causal, window, scale,
+                                   stream);
     case 256:
       return launch_d<T, Src, 256>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                            max_entries, M, causal, window,
-                                            scale, stream);
+                                   max_entries, M, causal, window, scale,
+                                   stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool kDecode>
 int contig(const void* q, const void* k, const void* v, const int* q_pos,
            const int* kv_pos, void* out, int B, int S, int Hq, int Hkv, int C,
            int D, int causal, int window, float scale, int is_bf16,
@@ -510,18 +505,16 @@ int contig(const void* q, const void* k, const void* v, const int* q_pos,
     using T = __nv_bfloat16;
     ContigSrc<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
                      kv_pos, C};
-    return launch<T, ContigSrc<T>, kDecode>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                            D, C, 0, causal, window, scale,
-                                            stream);
+    return launch<T, ContigSrc<T>>(q, q_pos, out, src, B, S, Hq, Hkv, D, C,
+                                   0, causal, window, scale, stream);
   }
   ContigSrc<float> src{static_cast<const float*>(k),
                        static_cast<const float*>(v), kv_pos, C};
-  return launch<float, ContigSrc<float>, kDecode>(q, q_pos, out, src, B, S, Hq,
-                                                  Hkv, D, C, 0, causal, window,
-                                                  scale, stream);
+  return launch<float, ContigSrc<float>>(q, q_pos, out, src, B, S, Hq, Hkv,
+                                         D, C, 0, causal, window, scale,
+                                         stream);
 }
 
-template <bool kDecode>
 int paged(const void* q, const void* kp, const void* vp, const int* ppos,
           const int* tbl, const int* q_pos, void* out, int B, int S, int Hq,
           int Hkv, int bs, int M, int D, int causal, int window, float scale,
@@ -531,15 +524,14 @@ int paged(const void* q, const void* kp, const void* vp, const int* ppos,
     using T = __nv_bfloat16;
     PagedSrc<T> src{static_cast<const T*>(kp), static_cast<const T*>(vp),
                     ppos, tbl, M, bs};
-    return launch<T, PagedSrc<T>, kDecode>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                           D, M * bs, M, causal, window, scale,
-                                           stream);
+    return launch<T, PagedSrc<T>>(q, q_pos, out, src, B, S, Hq, Hkv, D,
+                                  M * bs, M, causal, window, scale, stream);
   }
   PagedSrc<float> src{static_cast<const float*>(kp),
                       static_cast<const float*>(vp), ppos, tbl, M, bs};
-  return launch<float, PagedSrc<float>, kDecode>(q, q_pos, out, src, B, S, Hq,
-                                                 Hkv, D, M * bs, M, causal,
-                                                 window, scale, stream);
+  return launch<float, PagedSrc<float>>(q, q_pos, out, src, B, S, Hq, Hkv,
+                                        D, M * bs, M, causal, window, scale,
+                                        stream);
 }
 
 }  // namespace
@@ -551,16 +543,8 @@ int attn_flash(const void* q, const void* k, const void* v, const int* q_pos,
                const int* kv_pos, void* out, int B, int S, int Hq, int Hkv,
                int C, int D, int causal, int window, float scale, int is_bf16,
                void* stream) {
-  return contig<false>(q, k, v, q_pos, kv_pos, out, B, S, Hq, Hkv, C, D,
-                       causal, window, scale, is_bf16, stream);
-}
-
-// the same with S == 1 (causal): one block per (b, kv head)
-int attn_decode(const void* q, const void* k, const void* v, const int* q_pos,
-                const int* kv_pos, void* out, int B, int Hq, int Hkv, int C,
-                int D, int window, float scale, int is_bf16, void* stream) {
-  return contig<true>(q, k, v, q_pos, kv_pos, out, B, 1, Hq, Hkv, C, D, 1,
-                      window, scale, is_bf16, stream);
+  return contig(q, k, v, q_pos, kv_pos, out, B, S, Hq, Hkv, C, D, causal,
+                window, scale, is_bf16, stream);
 }
 
 // q (B,S,Hq,D), kp/vp (nb,bs,Hkv,D), ppos (nb,bs), tbl (B,M), q_pos (B,S)
@@ -569,16 +553,8 @@ int attn_paged_flash(const void* q, const void* kp, const void* vp,
                      void* out, int B, int S, int Hq, int Hkv, int bs, int M,
                      int D, int causal, int window, float scale, int is_bf16,
                      void* stream) {
-  return paged<false>(q, kp, vp, ppos, tbl, q_pos, out, B, S, Hq, Hkv, bs, M,
-                      D, causal, window, scale, is_bf16, stream);
-}
-
-int attn_paged_decode(const void* q, const void* kp, const void* vp,
-                      const int* ppos, const int* tbl, const int* q_pos,
-                      void* out, int B, int Hq, int Hkv, int bs, int M, int D,
-                      int window, float scale, int is_bf16, void* stream) {
-  return paged<true>(q, kp, vp, ppos, tbl, q_pos, out, B, 1, Hq, Hkv, bs, M,
-                     D, 1, window, scale, is_bf16, stream);
+  return paged(q, kp, vp, ppos, tbl, q_pos, out, B, S, Hq, Hkv, bs, M, D,
+               causal, window, scale, is_bf16, stream);
 }
 
 }  // extern "C"

@@ -4,19 +4,26 @@ Replaces the reference's ``kernels/paged_attention.py``:
 
   ``paged_decode_attention``  ``_paged_dec_kernel`` (wrapper
                               ``paged_decode_attention_bhgd``): one query
-                              token per row, the GQA group as rows; one
-                              block per (b, kv head).
+                              token per row, the GQA group as rows;
+                              ``attn_paged_decode`` of
+                              ``csrc/decode_attention.cu``, the table's
+                              entries split over blocks (grid (splits,
+                              Hkv, B), 128 entries each), the splits'
+                              partials merged in split order by the last
+                              block of each (b, kv head), in one launch.
   ``paged_flash_attention``   ``_paged_fa_kernel`` (wrapper
                               ``paged_flash_attention_bhsd``): chunked
                               prefill, kv head ``h // G``; one block per
-                              (b, kv head, tile of 16 rows).
+                              (b, kv head, tile of 16 rows);
+                              ``attn_paged_flash`` of ``csrc/attention.cu``.
 
-Both are ``attn_paged_*`` of ``csrc/attention.cu``.  The pool is read where
-it lies — kp/vp (nb,bs,Hkv,D), ppos (nb,bs) — through tbl (B,M) int32
-(-1 = unused column): the reference's ``_pool_to_kernel`` transposes and
-pads the whole pool on every call; the port does not.  Each block reads
-its own table row in place of the TPU's scalar prefetch and walks only the
-live columns (skipping a -1 column is exact: it is fully masked).
+The pool is read where it lies — kp/vp (nb,bs,Hkv,D), ppos (nb,bs) —
+through tbl (B,M) int32 (-1 = unused column): the reference's
+``_pool_to_kernel`` transposes and pads the whole pool on every call; the
+port does not.  Each block reads its own table columns in place of the
+TPU's scalar prefetch and loads only valid entries (a -1 column is fully
+masked: the flash kernel skips it, the decode kernel neither loads nor
+computes a chunk of keys that has no valid entry).
 
 Bound on the card: each live K/V entry read once per kv head (plus its
 position), q and the output, over 3.35 TB/s; or 4 * D operations per valid
@@ -78,15 +85,15 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
     if not ac.on_cuda(q, kp, vp, ppos, tbl, q_pos):
         return paged_decode_attention_plain(q, kp, vp, ppos, tbl, q_pos,
                                             window=window)
-    ac.check_aligned(kp, vp)
-    B, _, Hq, D = q.shape
-    bs, Hkv = kp.shape[1], kp.shape[2]
+    ac.check_aligned(q, kp, vp)
+    nb, bs, Hkv = kp.shape[:3]
+    M = tbl.shape[1]
+    ac.check_int32_rows(nb * bs)
     pp, tb, qp = ac.as_i32(ppos), ac.as_i32(tbl), ac.as_i32(q_pos)
-    out = torch.empty_like(q)
-    ac.launch("attn_paged_decode", q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-              pp.data_ptr(), tb.data_ptr(), qp.data_ptr(), out.data_ptr(), B,
-              Hq, Hkv, bs, tbl.shape[1], D, int(window), ac.scale_of(D),
-              int(q.dtype == torch.bfloat16), ac.stream(q))
+    out = ac.launch_decode("attn_paged_decode", q,
+                           (kp.data_ptr(), vp.data_ptr(), pp.data_ptr(),
+                            tb.data_ptr(), qp.data_ptr()),
+                           (bs, M), Hkv, M * bs, window)
     LAUNCHES["paged_decode"] += 1
     return out
 

@@ -40,7 +40,7 @@ def built():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
     from repro_torch.kernels import build
-    for name in ("vision_ops", "attention", "recurrent"):
+    for name in ("vision_ops", "attention", "decode_attention", "recurrent"):
         build.load(name)
 
 
@@ -167,12 +167,13 @@ def test_engine_on_card_matches_cpu(dev, no_tf32):
 # ---------------------------------------------------------------------------
 
 
-def _attn_case(seed, lens, S, Hq, Hkv, D, bs, M, dtype):
+def _attn_case(seed, lens, S, Hq, Hkv, D, bs, M, dtype, C=None):
     """Contiguous and paged views of the same logical KV.  Row b holds
     positions 0..lens[b]-1 in shuffled pool blocks (garbage values
     elsewhere, garbage positions in unreferenced blocks), its table
     columns past its length are -1, and its S queries sit at its last S
-    positions."""
+    positions.  The contiguous capacity is C (default: the longest row,
+    rounded up to a block)."""
     rng = np.random.default_rng(seed)
     B = len(lens)
     ncols = [max(1, -(-L // bs)) for L in lens]
@@ -182,7 +183,7 @@ def _attn_case(seed, lens, S, Hq, Hkv, D, bs, M, dtype):
     vp = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
     ppos = rng.integers(0, max(lens) + 4, (nb, bs)).astype(np.int32)
     tbl = np.full((B, M), -1, np.int32)
-    C = max(ncols) * bs
+    C = C or max(ncols) * bs
     k = np.zeros((B, C, Hkv, D), np.float32)
     v = np.zeros((B, C, Hkv, D), np.float32)
     kv_pos = np.full((B, C), -1, np.int32)
@@ -235,6 +236,34 @@ def _run_all(c, window, dev):
     return out
 
 
+def _check_decode(c, window, dev, tol):
+    """Both decode kernels against their plain versions on one case: each
+    call is one launch, two calls are bitwise equal, and the ticket
+    counters are back at 0 after the calls."""
+    from repro_torch.kernels import attention_common as ac
+    g = {n: x.to(dev) for n, x in c.items()}
+    dense = (g["q"], g["k"], g["v"], g["q_pos"], g["kv_pos"])
+    pool = (g["q"], g["kp"], g["vp"], g["ppos"], g["tbl"], g["q_pos"])
+    calls = {
+        "decode": (dec_k, lambda: dec_k.decode_attention(*dense,
+                                                         window=window),
+                   lambda: dec_k.decode_attention_plain(*dense,
+                                                        window=window)),
+        "paged_decode": (pa_k, lambda: pa_k.paged_decode_attention(
+            *pool, window=window), lambda: pa_k.paged_decode_attention_plain(
+            *pool, window=window)),
+    }
+    for name, (mod, kern, plain) in calls.items():
+        n0 = mod.LAUNCHES[name]
+        first, second = kern(), kern()
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES[name] == n0 + 2
+        assert torch.equal(first, second), f"{name}: repeat differs"
+        assert not ac.decode_counters(first.device).any()
+        torch.testing.assert_close(first.float().cpu(),
+                                   plain().float().cpu(), **tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -243,7 +272,10 @@ def _run_all(c, window, dev):
 @pytest.mark.parametrize("S", [1, 7])
 def test_attention_kernels_match_plain(dev, dtype, heads, S):
     """All four kernels against their plain versions: ragged lengths,
-    trailing -1 columns, a window, D = 16 and 128."""
+    trailing -1 columns, a window, D = 16 and 128.  The decode kernels
+    (128-key splits) also at lengths on and one off a split boundary over
+    several splits, and with more splits than live keys: one launch per
+    call, repeats bitwise equal, ticket counters back at 0."""
     Hq, Hkv = heads
     D = 128 if Hq == 24 else 16
     tol = TIGHT if dtype == torch.float32 else LOOSE
@@ -253,6 +285,13 @@ def test_attention_kernels_match_plain(dev, dtype, heads, S):
             assert got.dtype == want.dtype == dtype
             torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
                                        **tol)
+    if S != 1:
+        return
+    for lens, M, C in (([64, 63, 65, 128, 127, 129, 192], 32, 256),
+                       ([9, 1, 30], 64, 512)):
+        for window in (0, 70):
+            _check_decode(_attn_case(3, lens, 1, Hq, Hkv, D, 8, M, dtype,
+                                     C=C), window, dev, tol)
 
 
 @pytest.mark.cuda
@@ -271,13 +310,26 @@ def test_attention_kernels_at_token_path_shapes(dev, S):
 @pytest.mark.cuda
 def test_attention_kernel_edges(dev):
     """A row whose table is all -1 gives exactly 0; a ring that has wrapped
-    masks its stale entries by window; D = 64 with bs 16."""
-    c = _attn_case(2, [5, 70], 3, 8, 2, 64, 16, 6, torch.float32)
-    c["tbl"][0] = -1
-    c["kv_pos"][0] = -1
-    for got, want in _run_all(c, 0, dev):
-        assert torch.equal(got[0].cpu(), torch.zeros_like(got[0].cpu()))
-        torch.testing.assert_close(got.cpu(), want.cpu(), **TIGHT)
+    masks its stale entries by window; D = 64 with bs 16.  The decode
+    kernels also: one split only, a -1 column in the middle of a row, a
+    4096-key row at starcoder2-3b's heads and window (33 splits), and a
+    wrapped contiguous ring."""
+    for S in (3, 1):
+        c = _attn_case(2, [5, 70], S, 8, 2, 64, 16, 6, torch.float32)
+        c["tbl"][0] = -1
+        c["kv_pos"][0] = -1
+        for got, want in _run_all(c, 0, dev):
+            assert torch.equal(got[0].cpu(), torch.zeros_like(got[0].cpu()))
+            torch.testing.assert_close(got.cpu(), want.cpu(), **TIGHT)
+    for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+        _check_decode(_attn_case(4, [40, 64], 1, 8, 2, 64, 16, 4, dtype),
+                      0, dev, tol)                     # capacity 64: 1 split
+        c = _attn_case(5, [70, 100], 1, 8, 2, 64, 16, 8, dtype)
+        c["tbl"][0, 2] = -1                            # entries 32-47 of row 0
+        c["kv_pos"][0, 32:48] = -1
+        _check_decode(c, 0, dev, tol)
+        c = _attn_case(6, [4100, 33], 1, 24, 2, 128, 16, 257, dtype, C=4112)
+        _check_decode(c, 4096, dev, tol)
     # wrapped ring: positions 0..47 written into 2 columns of 16 (ring len
     # 2), so the pool holds 32..47 and 16..31; window 8 keeps 40..47
     q = torch.randn(1, 1, 8, 64, generator=torch.Generator().manual_seed(0))
@@ -292,6 +344,14 @@ def test_attention_kernel_edges(dev):
     got = kops.paged_attention(*args, window=8)
     want = pa_k.paged_decode_attention_plain(*args, window=8)
     torch.testing.assert_close(got.cpu(), want.cpu(), **TIGHT)
+    # the same ring contiguous: slot p % 32 holds position p
+    k = torch.cat([kp[2], kp[1]])[None]
+    v = torch.cat([vp[2], vp[1]])[None]
+    kv_pos = torch.cat([ppos[2], ppos[1]])[None]
+    args = [x.to(dev) for x in (q, k, v, qp, kv_pos)]
+    got = dec_k.decode_attention(*args, window=8)
+    torch.testing.assert_close(got.cpu(), dec_k.decode_attention_plain(
+        *args, window=8).cpu(), **TIGHT)
 
 
 @pytest.mark.cuda
@@ -336,7 +396,9 @@ def test_token_engine_on_card_matches_cpu(dev):
 def test_attention_kernels_at_head_dim_256(dev):
     """recurrentgemma-9b's heads: D = 256, Hq 16 over one kv head (G 16),
     all four kernels, fp32 TIGHT and bf16 LOOSE, with and without a
-    window; more than 48 KB of shared memory at any length."""
+    window; more than 48 KB of shared memory at any length.  The decode
+    kernels also at lengths on and one off a split boundary, at the
+    contiguous capacity of 2048 (32 splits) and recurrentgemma's window."""
     for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
         for S in (1, 9):
             for window in (0, 8):
@@ -344,6 +406,10 @@ def test_attention_kernels_at_head_dim_256(dev):
                 for got, want in _run_all(c, window, dev):
                     torch.testing.assert_close(got.float().cpu(),
                                                want.float().cpu(), **tol)
+        c = _attn_case(8, [127, 128, 129, 1031], 1, 16, 1, 256, 16, 65, dtype,
+                       C=2048)
+        for window in (0, 2048, 100):
+            _check_decode(c, window, dev, tol)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@
    at the token path's head shapes (Hq 24, Hkv 2, D 128, bf16, block 16,
    257 table columns, contiguous capacity 2048) over a sweep of live
    lengths, device time per call with a cold L2.  The slope over the live
-   length is the cost of one 32-key tile; the intercept the fixed cost of
-   a call.
+   length is the cost of 32 more keys; the intercept the fixed cost of a
+   call.
 2. The token main path that ``chip_smoke.py`` serves (``ServeEngine`` on
    the full-width, full-depth arch, slots 8, 16 requests of 33-1000
    prompt tokens, 32 new tokens each; starcoder2-3b paged,
@@ -17,6 +17,8 @@
    device work), then one more drain under ``torch.profiler``: device time
    per kernel, summed by name, and the device's busy share of the drain's
    wall time.
+   The port's own kernels are listed with their device time and launches
+   over that drain.
 3. A decode window: 8 requests admitted at once, then 16 decode-only ticks
    under ``torch.profiler``: host ms per tick, device busy ms per tick and
    the device time per tick by kernel.
@@ -123,7 +125,7 @@ def kernel_sweep(torch, dev):
             (SWEEP[-1] - SWEEP[-2]) / 32)
         print(f"sweep {name}: " + "  ".join(
             f"L={L}: {ms:.4f} ms" for L, ms in row.items())
-            + f"  -> {per_tile * 1e3:.2f} us per 32-key tile", flush=True)
+            + f"  -> {per_tile * 1e3:.2f} us per 32 keys", flush=True)
     return out
 
 
@@ -173,6 +175,20 @@ def device_ms(torch, prof) -> dict:
     return kernels
 
 
+def port_kernels(torch, prof) -> dict:
+    """{kernel: (device ms, launches)} of the port's own CUDA kernels (the
+    ``csrc`` sources define them in an anonymous namespace; PyTorch's
+    kernels there name ``at::native``), by template instance."""
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key.startswith("void (anonymous namespace)::")
+                and "at::native" not in e.key):
+            ms, n = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    return out
+
+
 def decode_window(torch, cfg, params, reqs, dev, ticks=16):
     """Admit SLOTS requests in one tick, then profile ``ticks`` decode-only
     ticks.  Returns (host ms per tick, {kernel: device ms per tick})."""
@@ -216,7 +232,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
-    for name in ("attention", "recurrent"):
+    for name in ("attention", "decode_attention", "recurrent"):
         build.build(name)
     sweep = kernel_sweep(torch, dev) if args.arch == "starcoder2-3b" else None
 
@@ -252,6 +268,10 @@ def main(argv=None) -> int:
           flush=True)
     for name, ms in top:
         print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
+    ours = port_kernels(torch, prof)
+    for name, (ms, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        print(f"port kernel over the drain: {ms:9.2f} ms in {n} launches "
+              f"({ms * 1e3 / n:.2f} us each)  {name[:100]}", flush=True)
 
     tick_ms, per_tick = decode_window(torch, cfg, params, reqs, dev)
     tick_busy = sum(per_tick.values())
@@ -267,6 +287,8 @@ def main(argv=None) -> int:
         "sweep_ms": sweep, "host_phases": phases, "drain_s": wall,
         "profiled_drain_s": prof_wall, "device_busy_ms": busy,
         "device_top_ms": {name[:100]: ms for name, ms in top},
+        "port_kernels_ms_launches": {name[:100]: v for name, v in
+                                     ours.items()},
         "decode_tick_ms": tick_ms, "decode_tick_busy_ms": tick_busy,
         "decode_tick_top_ms": {name[:100]: ms for name, ms in tick_top}}),
         flush=True)
