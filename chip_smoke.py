@@ -10,8 +10,9 @@ wall seconds):
                ``attention.cu``, ``decode_attention.cu`` and
                ``recurrent.cu`` with nvcc for sm_90a, one nvcc per source,
                started together; print the build times, the card's name
-               and power limit, and each decode kernel instance's
-               registers and spills from the ``-Xptxas -v`` report.
+               and power limit, and each decode and flash kernel
+               instance's registers and spills from the ``-Xptxas -v``
+               report.
   2. kernels   hold each vision kernel against its plain PyTorch version on
                the card, at the main path's shapes and at edge shapes
                (uint8 frames, box resampling, g=20 with block=8, a bf16
@@ -49,7 +50,13 @@ wall seconds):
                fp32 and bf16, and their times beside SDPA's.  At each
                timed decode shape: the split (keys per split, splits,
                grid, shared memory per block), two calls bitwise equal,
-               and the times at 64, 128 and 256 keys per split.
+               and the times at 64, 128 and 256 keys per split.  At each
+               timed flash shape (one 128-token chunk: starcoder2-3b's
+               heads contiguous and paged, D 256): rows per block, the
+               split, grid, shared memory, registers and spills, two
+               calls bitwise equal, and the times at 64/128 rows per
+               block x 128/256/512 keys per split and with P rounded
+               once to bf16.
   7. tokens    ``ServeEngine`` on full-width, full-depth starcoder2-3b
                (bf16, random weights drawn on the card from a seed),
                slots=8, capacity 2048, prefill chunk 128: 16 requests of
@@ -138,6 +145,8 @@ ATTN_SOURCES = {
 }
 SPLIT_SWEEP = (64, 128, 256)          # keys per split, decode kernels
 DECODE_REGS = {}                      # (dtype, source, D): ptxas registers
+FLASH_SWEEP = ((64, 128), (128, 256, 512))  # rows x keys per split
+FLASH_REGS = {}                       # (dtype, source, D, rows): registers
 REC_REPLACES = {
     "rglru_scan": "src/repro/kernels/rglru.py:29",
     "mlstm_chunkwise": "src/repro/kernels/mlstm.py:36",
@@ -485,19 +494,23 @@ def attn_work(torch, q, q_pos, kv_pos, Hkv, window=0, table_bytes=0):
     return nbytes, 4 * D * Hq * pairs, valid
 
 
-def ptxas_decode_report(log: str) -> dict:
-    """{(dtype, source, D): (registers, spill bytes)} of the decode kernel
-    instances in an ``-Xptxas -v`` report."""
+def ptxas_report(log: str, kernel: str = "decode") -> dict:
+    """{(dtype, source, D[, rows]): (registers, spill bytes)} of the
+    ``decode_kernel`` or ``flash_kernel`` instances in an ``-Xptxas -v``
+    report (the flash kernels' key ends with their rows per block)."""
     import re
+    srcs = {"decode": ("PagedKV", "ContigKV"),
+            "flash": ("PagedSrc", "ContigSrc")}[kernel]
+    pat = (rf"Compiling entry function '\S*{kernel}_kernelI"
+           rf"(13__nv_bfloat16|f)\S*?({srcs[0]}|{srcs[1]})\S*?Li(\d+)E"
+           + (r"Li(\d+)E" if kernel == "flash" else ""))
     out, key, spill = {}, None, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*decode_kernelI"
-                      r"(13__nv_bfloat16|f)\S*?(PagedKV|ContigKV)\S*?Li(\d+)E",
-                      line)
+        m = re.search(pat, line)
         if m:
             key = ("bf16" if m.group(1) != "f" else "f32",
-                   "paged" if m.group(2) == "PagedKV" else "contiguous",
-                   int(m.group(3)))
+                   "paged" if m.group(2) == srcs[0] else "contiguous",
+                   *map(int, m.groups()[2:]))
             continue
         if key is None:
             continue
@@ -548,6 +561,63 @@ def split_sweep(torch, name, kern, label):
     print(f"kernel {name} {label}: keys per split -> cold-L2 ms "
           + "  ".join(f"{k}: {t:.4f}" for k, t in times.items())
           + f" (default {default})", flush=True)
+
+
+def flash_report(torch, name, c, kern, capacity, label):
+    """Print a flash call's rows per block, split, grid and per-block
+    resources, and fail unless two calls are bitwise equal."""
+    from repro_torch.kernels import attention_common as ac
+    B, S, Hq, D = c["q"].shape
+    Hkv = c["kp"].shape[2]
+    rows = ac.flash_rows(c["q"].dtype)
+    tiles, split_keys, splits = ac.flash_split(
+        B, S, Hq // Hkv, Hkv, capacity, rows=rows,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    smem = ac.flash_smem_bytes(D, c["q"].dtype, rows, split_keys, splits)
+    dt = "bf16" if c["q"].dtype == torch.bfloat16 else "f32"
+    regs, spill = FLASH_REGS.get(
+        (dt, "paged" if name.startswith("paged") else "contiguous", D, rows),
+        (None, None))
+    first, second = kern(), kern()
+    if not torch.equal(first, second):
+        fail(f"{name} {label}: two calls on the same inputs differ")
+    blocks = splits * Hkv * tiles * B
+    print(f"kernel {name} {label}: {rows} rows per block ({tiles} row tiles "
+          f"of S*G = {S * Hq // Hkv}); {splits} splits of {split_keys} keys "
+          f"over capacity {capacity}; grid ({splits}, {Hkv * tiles}, {B}) = "
+          f"{blocks} blocks of {rows * 2} threads, {smem} B dynamic shared "
+          f"memory, {regs} registers ({spill} B spilled) per block; P V "
+          f"{'P_hi + P_lo' if ac.FLASH_P_SPLIT else 'P in bf16'}; two calls "
+          f"bitwise equal", flush=True)
+
+
+def flash_sweep(torch, name, c, kern, capacity, label):
+    """Cold-L2 time of a bf16 flash call at each rows per block x keys per
+    split of FLASH_SWEEP (the split actually taken beside each: the rule
+    halves it while the grid would leave SMs idle), and with P rounded once
+    to bf16 at the defaults; the defaults restored after."""
+    from repro_torch.kernels import attention_common as ac
+    B, S, Hq, _ = c["q"].shape
+    Hkv = c["kp"].shape[2]
+    default = (ac.FLASH_ROWS, ac.FLASH_SPLIT_KEYS, ac.FLASH_P_SPLIT)
+    cells = []
+    try:
+        for rows in FLASH_SWEEP[0]:
+            for keys in FLASH_SWEEP[1]:
+                ac.FLASH_ROWS, ac.FLASH_SPLIT_KEYS = rows, keys
+                _, took, splits = ac.flash_split(B, S, Hq // Hkv, Hkv,
+                                                 capacity, rows=rows)
+                cells.append(f"{rows}x{keys} ({splits} of {took}): "
+                             f"{time_ms(kern):.4f}")
+        ac.FLASH_ROWS, ac.FLASH_SPLIT_KEYS = default[:2]
+        ac.FLASH_P_SPLIT = False
+        cells.append(f"P in bf16: {time_ms(kern):.4f}")
+    finally:
+        ac.FLASH_ROWS, ac.FLASH_SPLIT_KEYS, ac.FLASH_P_SPLIT = default
+    print(f"kernel {name} {label}: rows x max keys per split (splits of "
+          f"keys taken) -> cold-L2 ms  " + "  ".join(cells)
+          + f" (default {default[0]}x{default[1]}, P_hi + P_lo "
+          f"{default[2]})", flush=True)
 
 
 def check_attention(torch, dev):
@@ -643,12 +713,14 @@ def check_attention(torch, dev):
                    F.scaled_dot_product_attention(qT, kT, vT, attn_mask=mask,
                                                   enable_gqa=True))
             b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            cap = c["tbl"].shape[1] * TOK_BLOCK if paged else c["k"].shape[1]
+            label = "at starcoder2-3b's heads"
             if name.endswith("decode"):
-                cap = (c["tbl"].shape[1] * TOK_BLOCK if paged
-                       else c["k"].shape[1])
-                label = "at starcoder2-3b's heads"
                 decode_report(torch, name, c, kern, cap, label)
                 split_sweep(torch, name, kern, label)
+            else:
+                flash_report(torch, name, c, kern, cap, label)
+                flash_sweep(torch, name, c, kern, cap, label)
             rows[name] = {
                 "name": name, "route": "cuda", "source": ATTN_SOURCES[name],
                 "replaces": ATTN_REPLACES[name], "launches": 0,
@@ -697,11 +769,15 @@ def check_attention(torch, dev):
                        F.scaled_dot_product_attention(
                            qT, kT, vT, attn_mask=mask, enable_gqa=True))
                 b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+                label = "at D 256 (recurrentgemma-9b's heads)"
                 if name == "decode":
-                    label = "at D 256 (recurrentgemma-9b's heads)"
                     decode_report(torch, name, c, kern, c["k"].shape[1],
                                   label)
                     split_sweep(torch, name, kern, label)
+                else:
+                    flash_report(torch, name, c, kern, c["k"].shape[1],
+                                 label)
+                    flash_sweep(torch, name, c, kern, c["k"].shape[1], label)
                 k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
                 print(f"kernel {name} at D 256 (recurrentgemma-9b: Hq 16, "
                       f"Hkv 1, window {rg_window}): B={c['q'].shape[0]} "
@@ -1188,12 +1264,19 @@ def main() -> int:
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip(), flush=True)
-    log = built["decode_attention"][0].with_suffix(".log")
-    DECODE_REGS.update(ptxas_decode_report(log.read_text()
-                                           if log.exists() else ""))
-    for (dt, src, D), (regs, spill) in sorted(DECODE_REGS.items()):
-        print(f"decode kernel {dt} {src} D {D}: {regs} registers, {spill} "
-              f"B spilled", flush=True)
+    for kernel, source, regs_of in (("decode", "decode_attention",
+                                     DECODE_REGS),
+                                    ("flash", "attention", FLASH_REGS)):
+        log = built[source][0].with_suffix(".log")
+        regs_of.update(ptxas_report(log.read_text() if log.exists() else "",
+                                    kernel))
+        if not regs_of:
+            fail(f"no {kernel} kernel instance in the ptxas report")
+        for key, (regs, spill) in sorted(regs_of.items()):
+            what = " ".join(map(str, key[:2])) + f" D {key[2]}" + (
+                f" rows {key[3]}" if len(key) > 3 else "")
+            print(f"{kernel} kernel {what}: {regs} registers, {spill} B "
+                  f"spilled", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 

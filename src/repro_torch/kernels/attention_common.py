@@ -1,14 +1,19 @@
 """What the four attention kernels share: the libraries, the dispatch
-rule, the input checks, the decode kernels' split and workspace, and the
-plain masked attention.
+rule, the input checks, the split of the keys over blocks with its
+workspace and ticket counters, and the plain masked attention.
 
 The kernels themselves live in two CUDA sources, each built with ``nvcc``
 for ``sm_90a`` at first use (``kernels/build.py``): ``csrc/attention.cu``
 (the two flash kernels, one templated routine) and
 ``csrc/decode_attention.cu`` (the two decode kernels, one templated
-routine that splits the keys over the SMs).  Their wrappers, launch counts
-and plain versions are in ``flash_attention.py``, ``decode_attention.py``
-and ``paged_attention.py``.
+routine); both split each row's keys over blocks and merge the splits'
+partials in the same launch, and both take their ``cp.async``,
+``ldmatrix`` and ``mma`` helpers from ``csrc/attention_helpers.cuh``.
+Their wrappers, launch counts and plain versions are in
+``flash_attention.py``, ``decode_attention.py`` and ``paged_attention.py``.
+The split rules (``decode_split``, ``flash_split``) are computed from the
+shapes alone, so no wrapper waits for the card; ``split_partials_plain``
+and ``merge_partials_plain`` model the split arithmetic on the CPU.
 
 Dispatch rule: a CUDA tensor always goes to the hand kernel (or the call
 raises); a CPU tensor goes to the plain PyTorch version.  There is no
@@ -17,6 +22,7 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -31,8 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: {source under csrc/: ((C entry point, argtypes), ...)}
 _LIBRARIES = {
     "attention": (
-        ("attn_flash", (_P,) * 6 + (_I,) * 8 + (_F, _I, _P)),
-        ("attn_paged_flash", (_P,) * 7 + (_I,) * 9 + (_F, _I, _P)),
+        ("attn_flash", (_P,) * 8 + (_I,) * 11 + (_F, _I, _P)),
+        ("attn_paged_flash", (_P,) * 9 + (_I,) * 12 + (_F, _I, _P)),
+        ("attn_flash_smem", (_I,) * 5),
     ),
     "decode_attention": (
         ("attn_decode", (_P,) * 8 + (_I,) * 7 + (_F, _I, _P)),
@@ -47,6 +54,14 @@ ROWS = 16            # query heads of a GQA group per block (kRows)
 SPLIT_QUANTUM = 64   # split sizes are multiples of this (kWarps * kChunk)
 SPLIT_KEYS = 128     # keys per split unless the capacity needs more
 MAX_SPLITS = 128     # kMaxSplits
+
+# the flash kernels' rows and split (csrc/attention.cu)
+FLASH_ROWS = 64            # query rows per block, bf16: 64 or 128 (kBR)
+FLASH_TILE = 64            # keys per tile (kTileK); splits are multiples
+FLASH_SPLIT_KEYS = 256     # keys per split unless the grid is small
+FLASH_MAX_SPLITS = 64      # kMaxSplits of attention.cu
+FLASH_P_SPLIT = True       # P V as P_hi + P_lo (two bf16 mmas), bf16 only
+SMS = 132                  # an H100 SXM's SMs, where no card is asked
 
 
 def launch(name: str, *args) -> None:
@@ -123,16 +138,28 @@ def decode_smem_bytes(D: int, dtype: torch.dtype, split_keys: int) -> int:
 _COUNTERS: dict = {}
 
 
-def decode_counters(device: torch.device, n: int = 0) -> torch.Tensor:
-    """The decode kernels' ticket counters on ``device``, at least ``n`` of
-    them: zeroed once and reused, as every call leaves them at 0 again.
-    One buffer per device assumes the calls on a device run on one
-    stream."""
-    c = _COUNTERS.get(device)
+def ticket_counters(kind: str, device: torch.device,
+                    n: int = 0) -> torch.Tensor:
+    """The ticket counters of the ``kind`` kernels ("decode" or "flash") on
+    ``device``, at least ``n`` of them: zeroed once and reused, as every
+    call leaves them at 0 again.  Each kind has its own buffer, so a decode
+    call never meets a flash call's tickets; one buffer per device and
+    kind assumes the calls on a device run on one stream."""
+    c = _COUNTERS.get((kind, device))
     if c is None or c.numel() < n:
         c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _COUNTERS[device] = c
+        _COUNTERS[(kind, device)] = c
     return c
+
+
+def decode_counters(device: torch.device, n: int = 0) -> torch.Tensor:
+    """The decode kernels' ticket counters (:func:`ticket_counters`)."""
+    return ticket_counters("decode", device, n)
+
+
+def flash_counters(device: torch.device, n: int = 0) -> torch.Tensor:
+    """The flash kernels' ticket counters (:func:`ticket_counters`)."""
+    return ticket_counters("flash", device, n)
 
 
 def launch_decode(name: str, q: torch.Tensor, kv_ptrs: tuple, dims: tuple,
@@ -154,8 +181,77 @@ def launch_decode(name: str, q: torch.Tensor, kv_ptrs: tuple, dims: tuple,
     return out
 
 
+def flash_rows(dtype: torch.dtype) -> int:
+    """Query rows per flash block: FLASH_ROWS for bf16; fp32 (the tests and
+    the card-vs-CPU checks) always takes 64, whose fp32 tiles fit the
+    shared memory at every head dim."""
+    return FLASH_ROWS if dtype == torch.bfloat16 else 64
+
+
+def flash_split(B: int, S: int, G: int, Hkv: int, capacity: int, *,
+                rows: int = 64, sms: int = SMS) -> tuple:
+    """(row tiles, keys per split, splits) of a flash call: S query tokens
+    of B rows, GQA group G, over ``capacity`` logical entries (C, or M *
+    bs).  The rows of a (b, kv head) enumerate (s, g), cut into tiles of
+    ``rows``; the keys are cut into splits of FLASH_SPLIT_KEYS, halved
+    (down to one FLASH_TILE) while the grid B * Hkv * row tiles * splits
+    would not give every one of the ``sms`` SMs a block, and raised to a
+    multiple of FLASH_TILE where more than FLASH_MAX_SPLITS splits would be
+    needed.  From the shapes alone, so the wrapper never waits for the
+    card."""
+    row_tiles = -(-S * G // rows)
+    base = B * Hkv * row_tiles
+    keys = FLASH_SPLIT_KEYS
+    while keys > FLASH_TILE and base * -(-capacity // keys) < sms:
+        keys = max(FLASH_TILE, -(-(keys // 2) // FLASH_TILE) * FLASH_TILE)
+    cap_keys = -(-capacity // FLASH_MAX_SPLITS)
+    keys = max(keys, -(-cap_keys // FLASH_TILE) * FLASH_TILE)
+    return row_tiles, keys, max(1, -(-capacity // keys))
+
+
+def flash_smem_bytes(D: int, dtype: torch.dtype, rows: int, split_keys: int,
+                     splits: int) -> int:
+    """Dynamic shared memory of one flash block (builds the library)."""
+    lib = build.bind("attention", _LIBRARIES["attention"])
+    return lib.attn_flash_smem(D, rows, split_keys, splits,
+                               int(dtype == torch.bfloat16))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_flash(name: str, q: torch.Tensor, kv_ptrs: tuple, dims: tuple,
+                 Hkv: int, capacity: int, causal: bool,
+                 window: int) -> torch.Tensor:
+    """Launch ``attn_flash`` or ``attn_paged_flash`` on q (B,S,Hq,D):
+    ``kv_ptrs`` are the source's pointers after q (q_pos last), ``dims``
+    its sizes after Hkv (C, or bs and M).  Allocates the output and, with
+    more than one split, the fp32 workspace of the partials; returns the
+    output."""
+    B, S, Hq, D = q.shape
+    rows = flash_rows(q.dtype)
+    row_tiles, split_keys, splits = flash_split(
+        B, S, Hq // Hkv, Hkv, capacity, rows=rows,
+        sms=_sm_count(q.device.index))
+    slots = B * Hkv * row_tiles
+    ws = cnt = None
+    if splits > 1:
+        ws = torch.empty(slots * splits * rows * (D + 2), dtype=torch.float32,
+                         device=q.device)
+        cnt = flash_counters(q.device, slots)
+    out = torch.empty_like(q)
+    launch(name, q.data_ptr(), *kv_ptrs, out.data_ptr(),
+           0 if ws is None else ws.data_ptr(),
+           0 if cnt is None else cnt.data_ptr(), B, S, Hq, Hkv, *dims, D,
+           int(causal), int(window), rows, split_keys, int(FLASH_P_SPLIT),
+           scale_of(D), int(q.dtype == torch.bfloat16), stream(q))
+    return out
+
+
 def check_int32_rows(rows: int) -> None:
-    """The decode kernels index K/V rows with 32-bit ints."""
+    """The kernels index K/V rows with 32-bit ints."""
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} K/V entries do not fit 32-bit row indices")
 
@@ -213,41 +309,75 @@ def paged_gather_plain(kp: torch.Tensor, vp: torch.Tensor,
 
 def split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                         split_keys: int, window: int = 0):
-    """The plain counterpart of the decode kernels' split blocks: the keys
-    cut into splits of ``split_keys`` logical entries, each split's
-    unnormalised online-softmax state for every query head.  q (B,1,Hq,D);
-    k/v (B,C,Hkv,D).  Returns fp32 (m (B,n,Hq), l (B,n,Hq), acc
-    (B,n,Hq,D)); a split with no valid key gives (-1e30, 0, 0).  Nothing on
-    the card's path calls it."""
-    B, _, Hq, D = q.shape
+                         split_keys: int, window: int = 0,
+                         causal: bool = True, rows: int | None = None):
+    """The plain counterpart of the kernels' split blocks: the keys cut
+    into splits of ``split_keys`` logical entries, each split's
+    unnormalised online-softmax state for every query row.  q (B,S,Hq,D);
+    k/v (B,C,Hkv,D); q_pos (B,S); kv_pos (B,C).  Returns fp32 (m, l, acc);
+    a (split, row) with no valid key gives (-1e30, 0, 0).
+
+    Without ``rows``: m, l (B, n, S * Hq) and acc (B, n, S * Hq, D), the
+    rows in q's (s, head) order; at S = 1 that is the decode kernels'
+    layout (their rows are the query heads).  With ``rows`` (the flash
+    kernels' row tile): the rows of each (b, kv head) enumerate (s, g), g
+    fastest, cut into tiles of ``rows``, the last padded with inert rows;
+    m, l (B, Hkv, T, n, rows) and acc (B, Hkv, T, n, rows, D), one (b, kv
+    head, tile) per ticket counter of the kernel.  Nothing on the card's
+    path calls it."""
+    B, S, Hq, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     n = max(1, -(-C // split_keys))
-    qg = q[:, 0].reshape(B, Hkv, G, D).float()
-    kp, qp = kv_pos.long(), q_pos.long()
-    valid = (kp >= 0) & (kp <= qp)
+    qg = q.reshape(B, S, Hkv, G, D).float()
+    kp, qp = kv_pos.long()[:, None, :], q_pos.long()[:, :, None]
+    valid = (kp >= 0).expand(B, S, C)
+    if causal:
+        valid = valid & (kp <= qp)
     if window:
-        valid &= (qp - kp) < window
+        valid = valid & ((qp - kp) < window)
     ms, ls, accs = [], [], []
     for i in range(n):
         sl = slice(i * split_keys, (i + 1) * split_keys)
-        s = torch.einsum("bkgd,bckd->bkgc", qg,
+        s = torch.einsum("bskgd,bckd->bskgc", qg,
                          k[:, sl].float()) / math.sqrt(D)
-        ok = valid[:, None, None, sl]
+        ok = valid[:, :, None, None, sl]
         s = torch.where(ok, s, torch.full_like(s, NEG_INF))
         m = s.amax(dim=-1)
         p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
-        ms.append(m.reshape(B, Hq))
-        ls.append(p.sum(-1).reshape(B, Hq))
-        accs.append(torch.einsum("bkgc,bckd->bkgd", p, v[:, sl].float())
-                    .reshape(B, Hq, D))
-    return torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
+        ms.append(m)                                     # (B, S, Hkv, G)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bskgc,bckd->bskgd", p, v[:, sl].float()))
+    m, l, acc = torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
+    if rows is None:
+        return (m.reshape(B, n, S * Hq), l.reshape(B, n, S * Hq),
+                acc.reshape(B, n, S * Hq, D))
+    T = -(-S * G // rows)
+    pad = T * rows - S * G
+
+    def tiles(x, fill):
+        # (B, n, S, Hkv, G, ...) -> (B, Hkv, T, n, rows, ...)
+        x = x.movedim(3, 1).reshape(B, Hkv, n, S * G, *x.shape[5:])
+        x = torch.cat([x, x.new_full((B, Hkv, n, pad, *x.shape[4:]), fill)],
+                      dim=3)
+        return x.reshape(B, Hkv, n, T, rows, *x.shape[4:]).movedim(3, 2)
+
+    return tiles(m, NEG_INF), tiles(l, 0.0), tiles(acc, 0.0)
+
+
+def untile_rows_plain(x: torch.Tensor, S: int, G: int) -> torch.Tensor:
+    """Tiled rows (B, Hkv, T, rows, ...) of :func:`split_partials_plain`
+    (after :func:`merge_partials_plain`) back to (B, S, Hkv * G, ...),
+    dropping the padded rows."""
+    B, Hkv, T, rows = x.shape[:4]
+    x = x.reshape(B, Hkv, T * rows, *x.shape[4:])[:, :, :S * G]
+    x = x.reshape(B, Hkv, S, G, *x.shape[3:]).movedim(1, 2)
+    return x.reshape(B, S, Hkv * G, *x.shape[4:])
 
 
 def merge_partials_plain(m: torch.Tensor, l: torch.Tensor,
                          acc: torch.Tensor) -> torch.Tensor:
-    """The plain counterpart of the decode kernels' merge: partials m, l
+    """The plain counterpart of the kernels' merge: partials m, l
     (..., n, R) and acc (..., n, R, D) of n splits, fp32, give m* = max m_i,
     l = sum l_i e^(m_i - m*), acc = sum acc_i e^(m_i - m*) and out = acc /
     max(l, 1e-30) (..., R, D); a row with no valid key in any split (every

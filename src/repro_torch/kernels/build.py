@@ -4,9 +4,11 @@ Each source is compiled on first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, then loaded
 with ``ctypes``.  No PyTorch headers are involved, so a build takes
 seconds.  The library lands in ``kernels/_build/`` (git-ignored) under a
-name keyed by a hash of the source text and the flags: an edited source
-builds afresh, an unchanged one is reused.  The compiler's register and
-shared-memory report (``-Xptxas=-v``) is kept beside the library.
+name keyed by a hash of the source text, of every header under ``csrc/``
+(``*.cuh``, which the sources include) and of the flags: an edited source
+or header builds afresh, an unchanged one is reused.  The compiler's
+register and shared-memory report (``-Xptxas=-v``) is kept beside the
+library.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines that have no ``nvcc``.
@@ -46,8 +48,9 @@ def build(name: str) -> Path:
     renamed into place, so concurrent builders never load a half-written
     file."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(
+        h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}_{key}.so"
     if out.exists():
         return out

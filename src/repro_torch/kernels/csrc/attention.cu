@@ -1,114 +1,168 @@
-// Flash attention kernels for Hopper (sm_90a): paged and contiguous.
+// Flash attention for Hopper (sm_90a): S query tokens per row against a
+// contiguous or a paged KV cache, with the keys split over the SMs.
 //
 // Hand-written counterparts of two Pallas kernels of the reference:
 //
-//   attn_paged_flash   kernels/paged_attention.py  _paged_fa_kernel
 //   attn_flash         kernels/flash_attention.py  _fa_kernel
+//   attn_paged_flash   kernels/paged_attention.py  _paged_fa_kernel
 //
 // (The two decode kernels, attn_decode and attn_paged_decode, are in
-// decode_attention.cu: they split the keys over the SMs.)
+// decode_attention.cu; both sources take their cp.async, ldmatrix and mma
+// helpers from attention_helpers.cuh.)
 //
-// Both are one templated routine, attn_kernel<T, Src, kD>, over a
-// "KV source": PagedSrc reads the shared block pool kp/vp (nb, bs, Hkv, D)
-// through the block table tbl (B, M); ContigSrc reads the per-row cache
-// k/v (B, C, Hkv, D).  Both read K/V where they lie (no transpose, no
-// padding of D or of the block to TPU lane widths).  Head dims 16, 64, 128
-// and 256 (those of the ported configs and the tests; recurrentgemma-9b's
-// is 256, whose 32-key fp32 K+V tile alone is 64 KB, so it always takes the
-// >48 KB shared-memory path) are instantiated.
+// Both are one templated routine, flash_kernel<T, Src, kD, kBR>, over a
+// "KV source": ContigSrc reads the per-row cache k/v (B, C, Hkv, D) with
+// positions (B, C); PagedSrc reads the shared block pool kp/vp (nb, bs,
+// Hkv, D) with positions ppos (nb, bs) through the block table tbl (B, M).
+// K/V are read where they lie (no transpose, no padding of D or of the
+// block to TPU lane widths).  Head dims 16, 64, 128 and 256, bf16 and fp32.
 //
 // Semantics (exactly the reference's):
 //   * scale = 1/sqrt(D) of the real D (passed in by the wrapper);
 //   * a key is valid iff kv_pos >= 0, and kv_pos <= q_pos when causal, and
-//     q_pos - kv_pos < window when windowed; in the paged kernels the key's
+//     q_pos - kv_pos < window when windowed; in the paged kernel the key's
 //     table column must also be >= 0;
 //   * NEG_INF = -1e30 is finite; online softmax (m, l, acc) in fp32; both
 //     products accumulate in fp32;
 //   * out = acc / max(l, 1e-30), so a row with no valid key is exactly 0,
 //     cast to q's dtype (round to nearest even for bf16).
+// The kernel keeps scores and m in log2 units (score * scale * log2(e)),
+// so every exponential is one exp2f, and multiplies acc by 1 / max(l,
+// 1e-30): both change the rounding only, within TIGHT in fp32.
 //
-// Mapping.  The TPU grid's sequential axis (table column j, or KV block ik)
-// becomes a loop over key tiles inside one block; nothing carries across
-// blocks.  A block owns one (batch row b, kv head hk) and a tile of up to
-// kMaxRows query rows, the rows enumerating (s, g) with the GQA group index
-// g fastest, so one K/V tile staged in shared memory serves every query
-// head of the group (q head = hk * G + g, the reference's h // G rule):
-// ceil(S*G / kMaxRows) row tiles per (b, hk).
+// What bounds it.  At the main path's shapes (a 128-token prefill chunk
+// against ~1000 cached keys, G 12-16) the operations bound is 1.4-2.1 us
+// and the bytes bound below it; a call moves little data and does little
+// arithmetic by the card's measure, so what it pays is latency: dependent
+// trips to memory per key tile, the number of tiles one block walks in
+// turn, and the merge.  The design cuts the tiles per block (splits), keeps
+// the next tile's bytes in flight (cp.async ring) and shortens each tile's
+// arithmetic (tensor cores).
 //
-// Scalar prefetch becomes the block reading its own table row: the paged
-// prologue copies tbl[b, :] into shared memory and keeps the live columns
-// only.  The prologue then reads every live entry's position into shared
-// memory, marks in one 32-bit mask per tile of kTileK = 32 entries the keys
-// valid for at least one row of the block, and lists the tiles with any.
-// Skipping a column with tbl < 0, a tile with no valid key, or a key valid
-// for no row is exact: a fully masked key leaves (m, l, acc) unchanged
-// (m_new = m, alpha = exp(0) = 1, p = 0).
-//
-// Work per listed tile: each thread holds 4-element vectors of the tile's
-// K and V rows in registers; the loads of the NEXT tile are issued before
-// the current one is computed, so device-memory latency overlaps the math.
-// The tile is staged in shared memory as fp32 (K rows padded to D+4
-// floats: lane j reads key j's row as float4 without bank conflicts); each
-// of the 8 warps owns two rows; lane j computes the score of key j for
-// both (four independent FMA chains each), the warp reduces max and sum
-// with shuffles, and each lane accumulates D/32 contiguous output dims in
-// registers, four keys at a time.  fp32 FMA on the
-// CUDA cores throughout: no wgmma or TMA yet.
-//
-// Bounds, for the main path's shapes (PERF.md has the numbers): bytes =
-// each live K/V entry read once per kv head (2 * Hkv * D * itemsize per
-// entry, plus its 4-byte position) plus q and the output; operations =
-// 4 * D * sum over query rows and heads of the keys valid for that row.
-// bound = max(bytes / 3.35 TB/s, operations / 989 TFLOP/s bf16).
+// Design.
+//   1. Rows.  The query rows of one (row b, kv head) enumerate (s, g), the
+//      GQA group index g fastest, so one K/V tile serves every query head
+//      of the group (q head = hk * G + g, the reference's h // G rule).  A
+//      block takes kBR = 64 or 128 of them (4 or 8 warps of 16 rows: each
+//      warp owns the M = 16 of mma.sync.m16n8k16); rows past S * G are
+//      inert (q = 0, no valid key, nothing stored).
+//   2. Keys split over blocks, one launch.  The grid is (splits, Hkv *
+//      row_tiles, B); a block owns split_keys consecutive logical entries
+//      (a multiple of kTileK = 64).  The wrapper computes split_keys and
+//      splits from the shapes alone (attention_common.flash_split), so
+//      there is no device sync.  Each block writes an fp32 partial (m, l,
+//      acc) for its rows to a workspace; after a barrier its thread 0
+//      fences (fences are cumulative) and takes a ticket from an atomic
+//      counter per (b, kv head, row tile).  The block that draws the last
+//      ticket merges the partials in split order 0..n-1, whichever block
+//      arrives last, so two calls give bitwise-equal results; then it
+//      resets the counter to 0.  A block whose split holds no key valid for
+//      its rows (past the causal frontier, outside the window, empty slots,
+//      -1 columns) writes an empty partial (m = -1e30, l = 0 for every row;
+//      its acc is never read) and still takes its ticket: a block that left
+//      early would leave the merge waiting.  With one split the block
+//      writes the output itself and takes no ticket.
+//   3. Which keys a block loads.  The block reads its split's positions
+//      (through its table columns when paged) into shared memory, one trip
+//      per key for all threads, and loads a key iff its position is >= 0
+//      and inside the hull of its rows' valid ranges (<= the largest q_pos
+//      when causal, > the smallest q_pos - window when windowed).  A 64-key
+//      tile with no such key is neither loaded nor computed; the rows'
+//      own masks apply in the softmax, exactly.  A key not loaded is
+//      zero-filled (cp.async with src-size 0): its V row must be 0, not
+//      stale bits (NaN, Inf), as p = 0 multiplies it.
+//   4. Tiles in flight, in their own type.  K and V tiles of 64 keys go
+//      from device memory straight to shared memory with cp.async, 16 bytes
+//      a lane (bf16 stays bf16), through a ring of kRing stages: the loads
+//      of tile t+1 are in flight while tile t is computed; one block
+//      barrier per tile.  q comes the same way, with the first tile.
+//   5. Tensor cores for bf16.  Per warp and tile, S = Q K^T (16 rows x 64
+//      keys) is (D / 16) x 8 mma.sync m16n8k16 (bf16 in, fp32 accumulate:
+//      the bf16 x bf16 products are exact in fp32, so only the order of the
+//      sum differs from the reference); the softmax runs once per tile on
+//      the accumulators; P V is 4 x (D / 8) mmas.  P stays fp32 in the
+//      reference (which casts V to fp32 before the product), so by default
+//      P = P_hi + P_lo (both bf16) and P V is two mmas per 8 output dims:
+//      16 bits of P's mantissa (p_split = 0 rounds P once to bf16: one mma).
+//      Q, K and V fragments come from shared memory with ldmatrix (V
+//      transposed); rows are padded by 16 bytes so those reads are free of
+//      bank conflicts.  fp32 inputs (the tests and the card-vs-CPU checks)
+//      take the same rows, split, ring and merge with fp32 FMA on the CUDA
+//      cores, in the mma's register layout (P through a per-warp scratch in
+//      shared memory), so the softmax and the epilogue are shared.
+//   6. The merge reads every split's m and l in one trip, lists the splits
+//      with a valid key for some row, computes each row's weights 2^(m_i -
+//      m*) and 1 / max(l, 1e-30), and then reads only the live splits' acc
+//      (L2-resident) into registers: eight float4 a thread from four splits
+//      at once, 32 loads in flight, summed in split order.
 //
 // Plain C entry points, loaded with ctypes; each returns cudaGetLastError()
 // (or the launch's refusal) so the wrapper can raise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_helpers.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileK = 32;                     // keys per tile: one per lane
-constexpr int kMaxRows = 16;                   // query rows per block
-constexpr int kRowsPerWarp = kMaxRows / kWarps;
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTileK = 64;                 // keys per tile
+constexpr int kMaxSplits = 64;             // attention_common.FLASH_MAX_SPLITS
+constexpr int kSmemMax = 223 * 1024;       // dynamic: 227 KB opt-in less static
+constexpr int kKeyBudget = 16 * 1024;      // left for positions and lists
+constexpr int kPStride = kTileK + 4;       // fp32 P scratch row (floats)
 
-// four consecutive elements of T, as loaded from device memory
-template <typename T>
-struct Vec4;
-template <>
-struct Vec4<float> {
-  using type = float4;
-  __device__ static float4 to_f(float4 v) { return v; }
-};
-template <>
-struct Vec4<__nv_bfloat16> {
-  using type = uint2;
-  __device__ static float4 to_f(uint2 v) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// elements of T per shared-memory row: D plus 16 bytes of padding
+template <typename T, int kD>
+__host__ __device__ constexpr int row_elems() {
+  return kD + 16 / static_cast<int>(sizeof(T));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+template <typename T, int kD, int kBR>
+__host__ __device__ constexpr int q_bytes() {
+  return kBR * row_elems<T, kD>() * static_cast<int>(sizeof(T));
+}
+
+// one ring stage: a K and a V tile
+template <typename T, int kD>
+__host__ __device__ constexpr int stage_bytes() {
+  return 2 * kTileK * row_elems<T, kD>() * static_cast<int>(sizeof(T));
+}
+
+// fp32 only: each warp's P tile (16 rows) for the FMA P.V
+template <typename T, int kBR>
+__host__ __device__ constexpr int pscratch_bytes() {
+  return sizeof(T) == 4 ? (kBR / 16) * 16 * kPStride * 4 : 0;
+}
+
+// two stages where q, two stages and the scratch leave kKeyBudget
+template <typename T, int kD, int kBR>
+__host__ __device__ constexpr int ring_depth() {
+  return q_bytes<T, kD, kBR>() + 2 * stage_bytes<T, kD>() +
+                     pscratch_bytes<T, kBR>() + kKeyBudget <=
+                 kSmemMax
+             ? 2
+             : 1;
+}
+
+// The ring's region also holds, in the merging block, every split's m and
+// l (then the weights).
+template <typename T, int kD, int kBR>
+__host__ __device__ constexpr long long region_bytes(int nsplit) {
+  const long long ring =
+      static_cast<long long>(ring_depth<T, kD, kBR>()) * stage_bytes<T, kD>();
+  const long long merge = 8LL * nsplit * kBR;
+  return ring > merge ? ring : merge;
+}
+
+template <typename T, int kD, int kBR>
+__host__ __device__ long long smem_bytes(int split_keys, int nsplit) {
+  return q_bytes<T, kD, kBR>() + region_bytes<T, kD, kBR>(nsplit) +
+         pscratch_bytes<T, kBR>() +
+         4LL * (2 * split_keys + split_keys / kTileK);
 }
 
 __device__ __forceinline__ bool key_valid(int p, int qp, int causal,
@@ -116,7 +170,7 @@ __device__ __forceinline__ bool key_valid(int p, int qp, int causal,
   return p >= 0 && (!causal || p <= qp) && (!window || qp - p < window);
 }
 
-// Contiguous cache: logical entry e of row b is k[b, e] (B, C, Hkv, D).
+// Contiguous cache: logical entry e of row b is row b * C + e of k/v.
 template <typename T>
 struct ContigSrc {
   const T* k;
@@ -124,19 +178,16 @@ struct ContigSrc {
   const int* pos;                              // (B, C), -1 = empty
   int C;
 
-  // Each entry's position into epos; returns the number of entries.
-  __device__ int prologue(int b, int*, int* epos, int tid) const {
-    for (int e = tid; e < C; e += kThreads)
-      epos[e] = pos[static_cast<long long>(b) * C + e];
-    return C;
-  }
-  __device__ long long entry(int b, int e, const int*) const {
-    return static_cast<long long>(b) * C + e;
+  // (K/V row, position) of entry e; (-1, -1) past the capacity
+  __device__ int2 lookup(int b, int e) const {
+    if (e >= C) return make_int2(-1, -1);
+    const int ent = b * C + e;
+    return make_int2(ent, __ldg(pos + ent));
   }
 };
 
-// Paged pool: logical entry e of row b is entry e % bs of the e / bs'th
-// LIVE column of tbl[b] (columns with tbl < 0 are dropped in prologue).
+// Paged pool: logical entry e of row b is entry e % bs of block tbl[b, e /
+// bs]; a column of -1 masks its entries.
 template <typename T>
 struct PagedSrc {
   const T* k;                                  // (nb, bs, Hkv, D)
@@ -145,416 +196,708 @@ struct PagedSrc {
   const int* tbl;                              // (B, M), -1 = unused
   int M, bs;
 
-  // Copy tbl[b, :] into cols and compact it to its live block ids, in
-  // column order; then each live entry's position into epos.  Returns the
-  // number of live entries.
-  __device__ int prologue(int b, int* cols, int* epos, int tid) const {
-    for (int c = tid; c < M; c += kThreads)
-      cols[c] = tbl[static_cast<long long>(b) * M + c];
-    __syncthreads();
-    __shared__ int n_live;
-    if (tid < 32) {
-      int n = 0;
-      for (int c0 = 0; c0 < M; c0 += 32) {
-        const int c = c0 + tid;
-        const int blk = c < M ? cols[c] : -1;
-        const unsigned live = __ballot_sync(kFull, blk >= 0);
-        __syncwarp();                          // every read before a write
-        if (blk >= 0) cols[n + __popc(live & ((1u << tid) - 1u))] = blk;
-        n += __popc(live);
-        __syncwarp();
-      }
-      if (tid == 0) n_live = n;
-    }
-    __syncthreads();
-    const int L = n_live * bs;
-    for (int e = tid; e < L; e += kThreads)
-      epos[e] = ppos[entry(b, e, cols)];
-    return L;
-  }
-  __device__ long long entry(int, int e, const int* cols) const {
-    return static_cast<long long>(cols[e / bs]) * bs + e % bs;
+  __device__ int2 lookup(int b, int e) const {
+    const int col = e / bs;
+    if (col >= M) return make_int2(-1, -1);
+    const int blk = __ldg(tbl + static_cast<long long>(b) * M + col);
+    if (blk < 0) return make_int2(-1, -1);
+    const int ent = blk * bs + e % bs;
+    return make_int2(ent, __ldg(ppos + ent));
   }
 };
 
-// Shared memory: fp32 q rows, the K and V tile, then ints: entry positions
-// (max_entries), tile masks and the tile list (max_entries / 32 each), and
-// the paged table row (M).
-__host__ __device__ constexpr int float_words(int D) {
-  return kMaxRows * D + kTileK * (D + 4) + kTileK * D;
-}
+// One warp's online-softmax state for its 16 rows, in the mma accumulator
+// layout: lane holds rows g = lane / 4 and g + 8 (index h), and of each 8
+// output dims j the two at 8 j + 2 (lane % 4) (+1).  l is the lane's share
+// (its own columns) until the end.
+template <int kD>
+struct State {
+  float m[2], l[2];
+  float acc[kD / 8][4];
+};
 
-// Start loading tile t's valid K/V rows into registers: thread tid holds
-// the 4-element vectors tid, tid + kThreads, ... of the tile's kTileK rows.
-template <typename T, int kD, typename Src, typename VT, int N>
-__device__ __forceinline__ void load_tile(const Src& src, int b, int hk,
-                                          int Hkv, int t,
-                                          const unsigned* tmask,
-                                          const int* cols, int tid,
-                                          VT (&rk)[N], VT (&rv)[N]) {
-  constexpr int kRowVecs = kD / 4;
-  const unsigned m = tmask[t];
+// S = Q K^T for the warp's 16 rows and a 64-key tile, on the tensor cores:
+// s[n][2 h + e] is row g + 8 h, key 8 n + 2 (lane % 4) + e.
+template <int kD>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4],
+                                            const __nv_bfloat16* qw,
+                                            const __nv_bfloat16* ks,
+                                            int lane) {
+  constexpr int RS = row_elems<__nv_bfloat16, kD>();
+  const int r8 = lane % 8, m1 = (lane / 8) & 1, m2 = lane / 16;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int vi = tid + i * kThreads;
-    const int j = vi / kRowVecs, c = (vi % kRowVecs) * 4;
-    if (vi < kTileK * kRowVecs && ((m >> j) & 1u)) {
-      const long long off =
-          (src.entry(b, t * kTileK + j, cols) * Hkv + hk) * kD + c;
-      rk[i] = *reinterpret_cast<const VT*>(src.k + off);
-      rv[i] = *reinterpret_cast<const VT*>(src.v + off);
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    unsigned a[4];
+    ldsm_x4(a, qw + (r8 + m1 * 8) * RS + kk * 16 + m2 * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned bk[4];
+      ldsm_x4(bk, ks + (np * 16 + r8 + m2 * 8) * RS + kk * 16 + m1 * 8);
+      mma_bf16(s[2 * np], a, bk[0], bk[1]);
+      mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
     }
   }
 }
 
-template <typename T, typename Src, int kD>
-__global__ void __launch_bounds__(kThreads)
-attn_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
-            T* __restrict__ out, Src src, int S, int Hq, int Hkv,
-            int max_entries, int row_tiles, int causal, int window,
-            float scale) {
-  using V4 = Vec4<T>;
-  using VT = typename V4::type;
-  constexpr int kRowVecs = kD / 4;                   // float4 per row
-  constexpr int kVecs = kTileK * kRowVecs;           // per tile
-  constexpr int kVecsPerThread = (kVecs + kThreads - 1) / kThreads;
-  constexpr int kEPL = kD >= 32 ? kD / 32 : 1;       // output dims per lane
-  constexpr int kKStride = kD + 4;
+// The same with fp32 FMA, in the same layout.
+template <int kD>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4], const float* qw,
+                                            const float* ks, int lane) {
+  constexpr int RS = row_elems<float, kD>();
+  const int g = lane / 4, c0 = (lane % 4) * 2;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4* qr =
+          reinterpret_cast<const float4*>(qw + (g + (i >> 1) * 8) * RS);
+      const float4* kr =
+          reinterpret_cast<const float4*>(ks + (n * 8 + c0 + (i & 1)) * RS);
+      float d = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < kD / 4; ++c) {
+        const float4 a = qr[c], k4 = kr[c];
+        d = fmaf(a.x, k4.x, d);
+        d = fmaf(a.y, k4.y, d);
+        d = fmaf(a.z, k4.z, d);
+        d = fmaf(a.w, k4.w, d);
+      }
+      s[n][i] = d;
+    }
+}
 
-  const int G = Hq / Hkv;
-  const int rows_total = S * G;
-  int bid = blockIdx.x;
-  const int rt = bid % row_tiles;
-  bid /= row_tiles;
-  const int hk = bid % Hkv;
-  const int b = bid / Hkv;
-  const int r0 = rt * kMaxRows;
-  const int nrows = min(kMaxRows, rows_total - r0);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int max_tiles = (max_entries + kTileK - 1) / kTileK;
-
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);       // kMaxRows x kD
-  float* ks = qs + kMaxRows * kD;                    // kTileK x (kD + 4)
-  float* vs = ks + kTileK * kKStride;                // kTileK x kD
-  int* epos = reinterpret_cast<int*>(vs + kTileK * kD);
-  unsigned* tmask = reinterpret_cast<unsigned*>(epos + max_entries);
-  int* tlist = reinterpret_cast<int*>(tmask + max_tiles);
-  int* cols = tlist + max_tiles;                     // paged only
-  __shared__ int rpos[kMaxRows];
-  __shared__ int kpos[kTileK];
-  __shared__ int n_tiles;
-
-  // query rows (fp32) and their positions
-  for (int r = warp; r < nrows; r += kWarps) {
-    const int row = r0 + r, s = row / G, g = row % G;
-    const T* qr = q + ((static_cast<long long>(b) * S + s) * Hq + hk * G + g) * kD;
-    for (int d = lane; d < kD; d += 32) qs[r * kD + d] = to_f(qr[d]);
+// Mask a tile's scores per row (kpos: the tile's key positions, -1 for a
+// key not loaded; qp/rok: the lane's two rows' positions and whether they
+// are real), fold them into the running state, and leave p = 2^(s - m) (0
+// for a masked key) in s.
+template <int kD>
+__device__ __forceinline__ void tile_softmax(State<kD>& st, float (&s)[8][4],
+                                             const int* kpos,
+                                             const int (&qp)[2],
+                                             const bool (&rok)[2], int causal,
+                                             int window, float scale2,
+                                             int lane) {
+  const int c0 = (lane % 4) * 2;
+  int p[8][2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int2 pp = *reinterpret_cast<const int2*>(kpos + n * 8 + c0);
+    p[n][0] = pp.x;
+    p[n][1] = pp.y;
   }
-  if (tid < nrows)
-    rpos[tid] = q_pos[static_cast<long long>(b) * S + (r0 + tid) / G];
-  const int L = src.prologue(b, cols, epos, tid);
-  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned vm = 0u;                          // bit 2 n + e: key valid
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = rok[h] && key_valid(p[n][e], qp[h], causal, window);
+        vm |= static_cast<unsigned>(ok) << (2 * n + e);
+        float& x = s[n][2 * h + e];
+        x = ok ? x * scale2 : kNegInf;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(st.m[h], mx);
+    const float alpha = exp2f(st.m[h] - m_new);
+    st.m[h] = m_new;
+    st.l[h] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      st.acc[j][2 * h] *= alpha;
+      st.acc[j][2 * h + 1] *= alpha;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[n][2 * h + e];
+        x = (vm >> (2 * n + e)) & 1u ? exp2f(x - m_new) : 0.f;
+        st.l[h] += x;
+      }
+  }
+}
 
-  // per tile, the keys valid for at least one row of the block
-  const int ntiles = (L + kTileK - 1) / kTileK;
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int e = t * kTileK + lane;
-    const int p = e < L ? epos[e] : -1;
-    bool v = false;
-    if (p >= 0)
-      for (int r = 0; r < nrows; ++r) v |= key_valid(p, rpos[r], causal, window);
-    const unsigned m = __ballot_sync(kFull, v);
-    if (lane == 0) tmask[t] = m;
+// acc += P V for a 64-key tile on the tensor cores (bf16).
+template <int kD>
+__device__ __forceinline__ void tile_pv(State<kD>& st, const float (&s)[8][4],
+                                        const __nv_bfloat16* vs, float*,
+                                        int lane, int p_split) {
+  constexpr int RS = row_elems<__nv_bfloat16, kD>();
+  const int r8 = lane % 8, m1 = (lane / 8) & 1, m2 = lane / 16;
+#pragma unroll
+  for (int kt = 0; kt < kTileK / 16; ++kt) {
+    unsigned ph[4], pl[4];
+    split_bf16(s[2 * kt][0], s[2 * kt][1], ph[0], pl[0]);
+    split_bf16(s[2 * kt][2], s[2 * kt][3], ph[1], pl[1]);
+    split_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1], ph[2], pl[2]);
+    split_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j) {
+      unsigned bv[4];
+      ldsm_x4_t(bv, vs + (kt * 16 + r8 + m1 * 8) * RS + j * 16 + m2 * 8);
+      mma_bf16(st.acc[2 * j], ph, bv[0], bv[1]);
+      mma_bf16(st.acc[2 * j + 1], ph, bv[2], bv[3]);
+      if (p_split) {
+        mma_bf16(st.acc[2 * j], pl, bv[0], bv[1]);
+        mma_bf16(st.acc[2 * j + 1], pl, bv[2], bv[3]);
+      }
+    }
+  }
+}
+
+// The same with fp32 FMA: P goes through the warp's scratch (16 rows of
+// kPStride floats), then each key's V row meets its two rows' p.
+template <int kD>
+__device__ __forceinline__ void tile_pv(State<kD>& st, const float (&s)[8][4],
+                                        const float* vs, float* ps, int lane,
+                                        int) {
+  constexpr int RS = row_elems<float, kD>();
+  const int g = lane / 4, c0 = (lane % 4) * 2;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      store2(ps + (g + 8 * h) * kPStride + n * 8 + c0, s[n][2 * h],
+             s[n][2 * h + 1]);
+  __syncwarp();
+#pragma unroll 4
+  for (int kk = 0; kk < kTileK; ++kk) {
+    const float p0 = ps[g * kPStride + kk];
+    const float p1 = ps[(g + 8) * kPStride + kk];
+    const float* vr = vs + kk * RS + c0;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const float2 v2 = *reinterpret_cast<const float2*>(vr + 8 * j);
+      st.acc[j][0] = fmaf(p0, v2.x, st.acc[j][0]);
+      st.acc[j][1] = fmaf(p0, v2.y, st.acc[j][1]);
+      st.acc[j][2] = fmaf(p1, v2.x, st.acc[j][2]);
+      st.acc[j][3] = fmaf(p1, v2.y, st.acc[j][3]);
+    }
+  }
+  __syncwarp();                                // scratch free for the next
+}
+
+// out row of (b, kv head hk, block row r): q head hk * G + g at s
+__device__ __forceinline__ long long row_offset(int b, int S, int Hq, int G,
+                                                int hk, int row) {
+  const int s = row / G, g = row % G;
+  return (static_cast<long long>(b) * S + s) * Hq + hk * G + g;
+}
+
+template <typename T, typename Src, int kD, int kBR>
+__global__ void __launch_bounds__(kBR * 2)
+flash_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
+             T* __restrict__ out, float* __restrict__ ws, int* cnt, Src src,
+             int S, int Hq, int Hkv, int row_tiles, int split_keys,
+             int causal, int window, int p_split, float scale) {
+  constexpr int kWarps = kBR / 16;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kRing = ring_depth<T, kD, kBR>();
+  constexpr int RS = row_elems<T, kD>();
+  constexpr int kPieces = kD * static_cast<int>(sizeof(T)) / 16;
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));   // per piece
+  constexpr int kStage = 2 * kTileK * RS;                    // elements
+  static_assert(kThreads >= kMaxSplits, "one thread per split in the merge");
+  static_assert(kThreads >= kBR, "one thread per row");
+
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int hk = blockIdx.y / row_tiles, rt = blockIdx.y % row_tiles;
+  const int b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int row0 = rt * kBR;
+  const int nrows = min(kBR, S * G - row0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int slot = (b * Hkv + hk) * row_tiles + rt;
+  const int ntiles = split_keys / kTileK;
+  // The workspace (fp32): first m[kBR], l[kBR] of every (slot, split), then
+  // acc[kBR][kD] of every (slot, split).
+  const long long nparts = static_cast<long long>(gridDim.y) * gridDim.z *
+                           nsplit;
+  float* ml_ws = ws;
+  float* acc_ws = ws + nparts * 2 * kBR;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);                        // kBR x RS
+  unsigned char* region = smem + q_bytes<T, kD, kBR>();
+  T* ring = reinterpret_cast<T*>(region);
+  float* pscr = reinterpret_cast<float*>(
+      region + region_bytes<T, kD, kBR>(nsplit));            // fp32 only
+  int* epos = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(pscr) +
+                                     pscratch_bytes<T, kBR>());
+  int* srcs = epos + split_keys;
+  int* tlist = srcs + split_keys;
+  __shared__ int rpos[kBR];
+  __shared__ int wlo[kWarps], whi[kWarps];
+  __shared__ float rinv[kBR];
+  __shared__ int live_split[kMaxSplits], live_flag[kMaxSplits];
+  __shared__ int n_tiles, is_last, n_live;
+
+  // one trip: the rows' positions (in flight while the split's lookups
+  // are issued) and the split's (K/V row, position)
+  const int qp_row = tid < nrows
+                         ? q_pos[static_cast<long long>(b) * S +
+                                 (row0 + tid) / G]
+                         : 0;
+  const int e0 = split * split_keys;
+  for (int k = tid; k < split_keys; k += kThreads) {
+    const int2 ep = src.lookup(b, e0 + k);
+    srcs[k] = ep.x;
+    epos[k] = ep.x >= 0 ? ep.y : -1;
+  }
+  {
+    if (tid < kBR) rpos[tid] = qp_row;
+    const int lo = __reduce_min_sync(kFull, tid < nrows ? qp_row : INT_MAX);
+    const int hi = __reduce_max_sync(kFull, tid < nrows ? qp_row : INT_MIN);
+    if (lane == 0) {
+      wlo[warp] = lo;
+      whi[warp] = hi;
+    }
+  }
+  __syncthreads();
+  // keys in the hull of the rows' valid ranges; per 64-key tile, whether
+  // it holds one (warp w takes tiles w, w + kWarps, ...)
+  {
+    int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      lo = min(lo, wlo[w]);
+      hi = max(hi, whi[w]);
+    }
+    for (int t = warp; t < ntiles; t += kWarps) {
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = t * kTileK + u * 32 + lane;
+        const int p = epos[k];
+        const bool live = p >= 0 && (!causal || p <= hi) &&
+                          (!window || lo - p < window);
+        if (!live) {
+          epos[k] = -1;
+          srcs[k] = -1;
+        }
+        any |= live;
+      }
+      any = __any_sync(kFull, any);
+      if (lane == 0) tlist[t] = any;
+    }
   }
   __syncthreads();
   if (warp == 0) {                             // ordered list of live tiles
     int n = 0;
     for (int t0 = 0; t0 < ntiles; t0 += 32) {
       const int t = t0 + lane;
-      const bool live = t < ntiles && tmask[t] != 0u;
+      const bool live = t < ntiles && tlist[t];
       const unsigned bal = __ballot_sync(kFull, live);
+      __syncwarp();                            // every read before a write
       if (live) tlist[n + __popc(bal & ((1u << lane) - 1u))] = t;
       n += __popc(bal);
+      __syncwarp();
     }
     if (lane == 0) n_tiles = n;
   }
   __syncthreads();
   const int nt = n_tiles;
 
-  VT rk[kVecsPerThread], rv[kVecsPerThread];
+  State<kD> st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    st.m[h] = kNegInf;
+    st.l[h] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st.acc[j][i] = 0.f;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kEPL];
+  const int g = lane / 4, c0 = (lane % 4) * 2;
+  const int wrow = warp * 16;                  // the warp's first row
+  if (nt > 0) {
+    // q rows (zero past nrows): the oldest cp.async group
+    for (int i = tid; i < kBR * kPieces; i += kThreads) {
+      const int r = i / kPieces, pc = (i % kPieces) * kElems;
+      const bool ok = r < nrows;
+      const T* qr =
+          q + (ok ? row_offset(b, S, Hq, G, hk, row0 + r) * kD + pc : 0);
+      cp_async16(qs + r * RS + pc, qr, ok);
+    }
+    cp_async_commit();
+    auto fetch = [&](int it) {
+      const int t = tlist[it];
+      T* kd = ring + (it % kRing) * kStage;
+      T* vd = kd + kTileK * RS;
+      for (int i = tid; i < kTileK * kPieces; i += kThreads) {
+        const int j = i / kPieces, pc = (i % kPieces) * kElems;
+        const int ent = srcs[t * kTileK + j];
+        const long long off =
+            (static_cast<long long>(ent < 0 ? 0 : ent) * Hkv + hk) * kD + pc;
+        cp_async16(kd + j * RS + pc, src.k + off, ent >= 0);
+        cp_async16(vd + j * RS + pc, src.v + off, ent >= 0);
+      }
+    };
+    int qp[2];
+    bool rok[2];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int r = wrow + g + 8 * h;
+      rok[h] = r < nrows;
+      qp[h] = rpos[r];
+    }
+    const bool busy = wrow < nrows;            // warp-uniform
+    const float scale2 = scale * kLog2e;
+    float* ps = pscr + warp * 16 * kPStride;   // fp32 only
+
+    // Every thread commits one group per step, empty or not: tile it is
+    // group it + 1 (after q), so at step it wait_group<kRing - 2> (kRing >=
+    // 2) means q and tile it have landed.  With one stage the next tile is
+    // fetched after the block is done with the current one.
 #pragma unroll
-    for (int c = 0; c < kEPL; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c + 1 < kRing; ++c) {
+      if (c < nt) fetch(c);
+      cp_async_commit();
+    }
+    for (int it = 0; it < nt; ++it) {
+      if constexpr (kRing == 1) {
+        fetch(it);
+        cp_async_commit();
+        cp_async_wait<0>();
+      } else {
+        cp_async_wait<(kRing >= 2 ? kRing - 2 : 0)>();
+      }
+      __syncthreads();
+      if constexpr (kRing >= 2) {
+        if (it + kRing - 1 < nt) fetch(it + kRing - 1);
+        cp_async_commit();
+      }
+      if (busy) {
+        const T* kd = ring + (it % kRing) * kStage;
+        float s[8][4];
+        tile_scores<kD>(s, qs + wrow * RS, kd, lane);
+        tile_softmax<kD>(st, s, epos + tlist[it] * kTileK, qp, rok, causal,
+                         window, scale2, lane);
+        tile_pv<kD>(st, s, kd + kTileK * RS, ps, lane, p_split);
+      }
+      if constexpr (kRing == 1) __syncthreads();
+    }
+    cp_async_wait<0>();
   }
 
-  if (nt > 0) load_tile<T, kD>(src, b, hk, Hkv, tlist[0], tmask, cols, tid, rk, rv);
-  for (int it = 0; it < nt; ++it) {
-    const int t = tlist[it];
-    const unsigned mask = tmask[t];
-    // stage this tile (fp32) in shared memory
+  // the lane's rows: l summed over the four lanes that share them
 #pragma unroll
-    for (int i = 0; i < kVecsPerThread; ++i) {
-      const int vi = tid + i * kThreads;
-      const int j = vi / kRowVecs, c = (vi % kRowVecs) * 4;
-      if (vi < kVecs) {                        // masked keys: zeros
-        const bool live = (mask >> j) & 1u;
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(ks + j * kKStride + c) =
-            live ? V4::to_f(rk[i]) : z;
-        *reinterpret_cast<float4*>(vs + j * kD + c) = live ? V4::to_f(rv[i]) : z;
-      }
-    }
-    if (tid < kTileK)
-      kpos[tid] = ((mask >> tid) & 1u) ? epos[t * kTileK + tid] : -1;
-    __syncthreads();
-    if (it + 1 < nt)                           // overlaps the math below
-      load_tile<T, kD>(src, b, hk, Hkv, tlist[it + 1], tmask, cols, tid, rk,
-                       rv);
+  for (int h = 0; h < 2; ++h) {
+    st.l[h] += __shfl_xor_sync(kFull, st.l[h], 1);
+    st.l[h] += __shfl_xor_sync(kFull, st.l[h], 2);
+  }
 
-    // Warp w owns rows w and w + kWarps: with few blocks in flight, many
-    // warps per block hide each other's latency; 8 warps of two rows ran
-    // faster on the token path's shapes than 4 of four or 16 of one.  A
-    // warp whose rows are all past nrows only helps stage (warp-uniform
-    // skip).
-    if (warp < nrows) {
-      const int p = kpos[lane];
-      bool valid[kRowsPerWarp];
-      float s[kRowsPerWarp];
+  if (nsplit == 1) {                           // no partial, no merge
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = warp + i * kWarps;
-        valid[i] = r < nrows && key_valid(p, rpos[r], causal, window);
-      }
-      {
-        const float4* kr = reinterpret_cast<const float4*>(ks + lane * kKStride);
-        float d[kRowsPerWarp][4];             // four independent chains
+    for (int h = 0; h < 2; ++h) {
+      const int r = wrow + g + 8 * h;
+      if (r >= nrows) continue;
+      const float inv = 1.f / fmaxf(st.l[h], 1e-30f);
+      T* orow = out + row_offset(b, S, Hq, G, hk, row0 + r) * kD + c0;
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
+      for (int j = 0; j < kD / 8; ++j)
+        store2(orow + 8 * j, st.acc[j][2 * h] * inv,
+               st.acc[j][2 * h + 1] * inv);
+    }
+    return;
+  }
+
+  // the partial: m and l of every row (empty ones too), acc when live
+  const long long pidx = static_cast<long long>(slot) * nsplit + split;
+  float* part_ml = ml_ws + pidx * 2 * kBR;
+  float* part_acc = acc_ws + pidx * kBR * kD;
 #pragma unroll
-        for (int c = 0; c < kRowVecs; ++c) {
-          const float4 k4 = kr[c];
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + g + 8 * h;
+    if (lane % 4 == 0) {
+      part_ml[r] = st.m[h];
+      part_ml[kBR + r] = st.l[h];
+    }
+    if (nt > 0) {
 #pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) {
-            const float4 a =
-                reinterpret_cast<const float4*>(qs + (warp + i * kWarps) * kD)[c];
-            d[i][0] = fmaf(a.x, k4.x, d[i][0]);
-            d[i][1] = fmaf(a.y, k4.y, d[i][1]);
-            d[i][2] = fmaf(a.z, k4.z, d[i][2]);
-            d[i][3] = fmaf(a.w, k4.w, d[i][3]);
-          }
+      for (int j = 0; j < kD / 8; ++j)
+        store2(part_acc + r * kD + 8 * j + c0, st.acc[j][2 * h],
+               st.acc[j][2 * h + 1]);
+    }
+  }
+
+  // ticket: the last block of this (b, kv head, row tile) merges.  One
+  // thread fences after the barrier (fences are cumulative: the block's
+  // partial is visible before the ticket), and the last block's thread 0
+  // fences again before its barrier releases the others to read.
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    is_last = atomicAdd(cnt + slot, 1) == nsplit - 1;
+    if (is_last) __threadfence();
+  }
+  __syncthreads();
+  if (!is_last) return;
+
+  // m and l of every split and row in one trip, then the splits with a
+  // valid key for some row (l > 0), in split order: the others are
+  // skipped, which is exact (their acc is 0 or never written)
+  float* ml = reinterpret_cast<float*>(region);  // [split][m kBR, l kBR]
+  if (tid < kMaxSplits) live_flag[tid] = 0;
+  {
+    const float4* src4 = reinterpret_cast<const float4*>(
+        ml_ws + static_cast<long long>(slot) * nsplit * 2 * kBR);
+    for (int i = tid; i < nsplit * 2 * kBR / 4; i += kThreads)
+      reinterpret_cast<float4*>(ml)[i] = __ldcg(src4 + i);
+  }
+  __syncthreads();
+  for (int i = tid; i < nsplit * nrows; i += kThreads) {
+    const int sp = i / nrows, r = i - sp * nrows;
+    if (ml[sp * 2 * kBR + kBR + r] > 0.f) live_flag[sp] = 1;
+  }
+  __syncthreads();
+  if (warp == 0) {                             // ordered list of live splits
+    int n = 0;
+    for (int s0 = 0; s0 < nsplit; s0 += 32) {
+      const bool live = s0 + lane < nsplit && live_flag[s0 + lane];
+      const unsigned bal = __ballot_sync(kFull, live);
+      if (live) live_split[n + __popc(bal & ((1u << lane) - 1u))] = s0 + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  const int nlive = n_live;
+  // each row's weights 2^(m_i - m*) in place of m_i (0 where l_i = 0), and
+  // 1 / max(l, 1e-30): one thread per row
+  if (tid < nrows) {
+    const int r = tid;
+    float M = kNegInf;
+    for (int j = 0; j < nlive; ++j) {
+      const float* mj = ml + live_split[j] * 2 * kBR;
+      if (mj[kBR + r] > 0.f) M = fmaxf(M, mj[r]);
+    }
+    float L = 0.f;
+    for (int j = 0; j < nlive; ++j) {
+      float* mj = ml + live_split[j] * 2 * kBR;
+      const float lj = mj[kBR + r];
+      const float x = lj > 0.f ? exp2f(mj[r] - M) : 0.f;
+      L += lj * x;
+      mj[r] = x;
+    }
+    rinv[r] = 1.f / fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  // out = the live partials' acc, weighted and summed in split order, times
+  // rinv: each thread owns kPer float4 of a pass and walks the live splits
+  // with the loads of kUn splits in flight
+  constexpr int kPer = 8, kUn = 4;
+  constexpr int kRowVecs = kD / 4;
+  const int n4 = nrows * kRowVecs;
+  const float4* acc_slot = reinterpret_cast<const float4*>(
+      acc_ws + static_cast<long long>(slot) * nsplit * kBR * kD);
+  for (int base = tid; base < n4; base += kPer * kThreads) {
+    float4 a[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) a[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j0 = 0; j0 < nlive; j0 += kUn) {
+      float4 v[kUn][kPer];
+#pragma unroll
+      for (int u = 0; u < kUn; ++u) {
+        const int sp = live_split[min(j0 + u, nlive - 1)];
+        const float4* pacc = acc_slot + static_cast<long long>(sp) * kBR *
+                                            kRowVecs;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          const int i = base + e * kThreads;
+          v[u][e] = (i < n4 && j0 + u < nlive) ? __ldcg(pacc + i)
+                                              : make_float4(0.f, 0.f, 0.f, 0.f);
         }
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          s[i] = valid[i] ? ((d[i][0] + d[i][1]) + (d[i][2] + d[i][3])) * scale
-                          : kNegInf;
-      }
-      float mx[kRowsPerWarp], pr[kRowsPerWarp], sum[kRowsPerWarp];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) mx[i] = s[i];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], o));
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float m_new = fmaxf(m[i], mx[i]);
-        const float alpha = expf(m[i] - m_new);
-        pr[i] = valid[i] ? expf(s[i] - m_new) : 0.f;
-        sum[i] = pr[i];
-        m[i] = m_new;
-        l[i] *= alpha;
-#pragma unroll
-        for (int c = 0; c < kEPL; ++c) acc[i][c] *= alpha;
       }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
+      for (int u = 0; u < kUn; ++u) {
+        if (j0 + u >= nlive) break;
+        const float* w = ml + live_split[j0 + u] * 2 * kBR;
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          sum[i] += __shfl_xor_sync(kFull, sum[i], o);
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) l[i] += sum[i];
-
-      // P @ V, four keys at a time; a group of keys masked for every row
-      // of the warp adds exactly 0 and is skipped (warp-uniform)
-      const bool owns = lane * kEPL < kD;      // lanes past D own no dim
-      for (int j0 = 0; j0 < kTileK; j0 += 4) {
-        float pj[4][kRowsPerWarp];
-        bool any = false;
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) {
-            pj[u][i] = __shfl_sync(kFull, pr[i], j0 + u);
-            any |= pj[u][i] != 0.f;
-          }
-        if (!any || !owns) continue;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float* vr = vs + (j0 + u) * kD + lane * kEPL;
-          if constexpr (kEPL % 4 == 0) {
-#pragma unroll
-            for (int c = 0; c < kEPL; c += 4) {
-              const float4 v4 = *reinterpret_cast<const float4*>(vr + c);
-#pragma unroll
-              for (int i = 0; i < kRowsPerWarp; ++i) {
-                acc[i][c] = fmaf(pj[u][i], v4.x, acc[i][c]);
-                acc[i][c + 1] = fmaf(pj[u][i], v4.y, acc[i][c + 1]);
-                acc[i][c + 2] = fmaf(pj[u][i], v4.z, acc[i][c + 2]);
-                acc[i][c + 3] = fmaf(pj[u][i], v4.w, acc[i][c + 3]);
-              }
-            }
-          } else {
-#pragma unroll
-            for (int c = 0; c < kEPL; ++c) {
-              const float v1 = vr[c];
-#pragma unroll
-              for (int i = 0; i < kRowsPerWarp; ++i)
-                acc[i][c] = fmaf(pj[u][i], v1, acc[i][c]);
-            }
-          }
+        for (int e = 0; e < kPer; ++e) {
+          const int i = base + e * kThreads;
+          if (i < n4) fma4(a[e], v[u][e], w[i / kRowVecs]);
         }
       }
     }
-    __syncthreads();
-  }
-
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + i * kWarps;
-    if (r < nrows && lane * kEPL < kD) {
-      const int row = r0 + r, s = row / G, g = row % G;
-      T* orow = out + ((static_cast<long long>(b) * S + s) * Hq + hk * G + g) * kD
-                + lane * kEPL;
-      const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < kEPL; ++c) orow[c] = from_f<T>(acc[i][c] / denom);
+    for (int e = 0; e < kPer; ++e) {
+      const int i = base + e * kThreads;
+      if (i < n4) {
+        const int r = i / kRowVecs, d = (i % kRowVecs) * 4;
+        const float x = rinv[r];
+        store4(out + row_offset(b, S, Hq, G, hk, row0 + r) * kD + d,
+               make_float4(a[e].x * x, a[e].y * x, a[e].z * x, a[e].w * x));
+      }
     }
   }
+  if (tid == 0) cnt[slot] = 0;                 // ready for the next call
 }
 
-size_t smem_bytes(int D, int max_entries, int M) {
-  const size_t tiles = (max_entries + kTileK - 1) / kTileK;
-  return sizeof(float) * static_cast<size_t>(float_words(D)) +
-         sizeof(int) * (static_cast<size_t>(max_entries) + 2 * tiles +
-                        static_cast<size_t>(M));
-}
-
-template <typename T, typename Src, int kD>
-int launch_d(const void* q, const int* q_pos, void* out, Src src, int B,
-             int S, int Hq, int Hkv, int max_entries, int M, int causal,
-             int window, float scale, void* stream) {
-  const int row_tiles = (S * (Hq / Hkv) + kMaxRows - 1) / kMaxRows;
-  const long long blocks = static_cast<long long>(B) * Hkv * row_tiles;
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  const size_t shmem = smem_bytes(kD, max_entries, M);
-  auto kernel = attn_kernel<T, Src, kD>;
+template <typename T, typename Src, int kD, int kBR>
+int launch_r(const void* q, const int* q_pos, void* out, float* ws, int* cnt,
+             Src src, int B, int S, int Hq, int Hkv, int capacity,
+             int split_keys, int causal, int window, int p_split,
+             float scale, void* stream) {
+  const int G = Hq / Hkv;
+  const int row_tiles = (S * G + kBR - 1) / kBR;
+  if (B == 0 || row_tiles == 0) return static_cast<int>(cudaSuccess);
+  int splits = (capacity + split_keys - 1) / split_keys;
+  if (splits < 1) splits = 1;
+  if (splits > kMaxSplits || B > 65535 ||
+      static_cast<long long>(Hkv) * row_tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long shmem = smem_bytes<T, kD, kBR>(split_keys, splits);
+  if (shmem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_kernel<T, Src, kD, kBR>;
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<static_cast<unsigned>(blocks), kThreads, shmem,
+  const dim3 grid(splits, Hkv * row_tiles, B);
+  kernel<<<grid, kBR * 2, static_cast<size_t>(shmem),
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), q_pos, static_cast<T*>(out), src, S, Hq, Hkv,
-      max_entries, row_tiles, causal, window, scale);
+      static_cast<const T*>(q), q_pos, static_cast<T*>(out), ws, cnt, src, S,
+      Hq, Hkv, row_tiles, split_keys, causal, window, p_split, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows per block: 64 for every type, 128 for bf16
+template <typename T, typename Src, int kD>
+int launch_d(int rows, const void* q, const int* q_pos, void* out, float* ws,
+             int* cnt, Src src, int B, int S, int Hq, int Hkv, int capacity,
+             int split_keys, int causal, int window, int p_split,
+             float scale, void* stream) {
+  if (rows == 64)
+    return launch_r<T, Src, kD, 64>(q, q_pos, out, ws, cnt, src, B, S, Hq,
+                                    Hkv, capacity, split_keys, causal, window,
+                                    p_split, scale, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (rows == 128)
+      return launch_r<T, Src, kD, 128>(q, q_pos, out, ws, cnt, src, B, S, Hq,
+                                       Hkv, capacity, split_keys, causal,
+                                       window, p_split, scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, typename Src>
-int launch(const void* q, const int* q_pos, void* out, Src src, int B, int S,
-           int Hq, int Hkv, int D, int max_entries, int M, int causal,
-           int window, float scale, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0)
+int launch(int rows, const void* q, const int* q_pos, void* out, float* ws,
+           int* cnt, Src src, int B, int S, int Hq, int Hkv, int D,
+           int capacity, int split_keys, int causal, int window, int p_split,
+           float scale, void* stream) {
+  if (Hkv < 1 || Hq % Hkv != 0 || split_keys < kTileK ||
+      split_keys % kTileK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 16:
-      return launch_d<T, Src, 16>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                  max_entries, M, causal, window, scale,
-                                  stream);
+      return launch_d<T, Src, 16>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq,
+                                  Hkv, capacity, split_keys, causal, window,
+                                  p_split, scale, stream);
     case 64:
-      return launch_d<T, Src, 64>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                  max_entries, M, causal, window, scale,
-                                  stream);
+      return launch_d<T, Src, 64>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq,
+                                  Hkv, capacity, split_keys, causal, window,
+                                  p_split, scale, stream);
     case 128:
-      return launch_d<T, Src, 128>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                   max_entries, M, causal, window, scale,
-                                   stream);
+      return launch_d<T, Src, 128>(rows, q, q_pos, out, ws, cnt, src, B, S,
+                                   Hq, Hkv, capacity, split_keys, causal,
+                                   window, p_split, scale, stream);
     case 256:
-      return launch_d<T, Src, 256>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                   max_entries, M, causal, window, scale,
-                                   stream);
+      return launch_d<T, Src, 256>(rows, q, q_pos, out, ws, cnt, src, B, S,
+                                   Hq, Hkv, capacity, split_keys, causal,
+                                   window, p_split, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int contig(const void* q, const void* k, const void* v, const int* q_pos,
-           const int* kv_pos, void* out, int B, int S, int Hq, int Hkv, int C,
-           int D, int causal, int window, float scale, int is_bf16,
-           void* stream) {
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    ContigSrc<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
-                     kv_pos, C};
-    return launch<T, ContigSrc<T>>(q, q_pos, out, src, B, S, Hq, Hkv, D, C,
-                                   0, causal, window, scale, stream);
-  }
-  ContigSrc<float> src{static_cast<const float*>(k),
-                       static_cast<const float*>(v), kv_pos, C};
-  return launch<float, ContigSrc<float>>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                         D, C, 0, causal, window, scale,
-                                         stream);
+template <typename T, int kD>
+int smem_of_d(int rows, int split_keys, int splits) {
+  if (rows == 64)
+    return static_cast<int>(smem_bytes<T, kD, 64>(split_keys, splits));
+  if (rows == 128 && sizeof(T) == 2)
+    return static_cast<int>(smem_bytes<T, kD, 128>(split_keys, splits));
+  return -1;
 }
 
-int paged(const void* q, const void* kp, const void* vp, const int* ppos,
-          const int* tbl, const int* q_pos, void* out, int B, int S, int Hq,
-          int Hkv, int bs, int M, int D, int causal, int window, float scale,
-          int is_bf16, void* stream) {
-  if (bs < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    PagedSrc<T> src{static_cast<const T*>(kp), static_cast<const T*>(vp),
-                    ppos, tbl, M, bs};
-    return launch<T, PagedSrc<T>>(q, q_pos, out, src, B, S, Hq, Hkv, D,
-                                  M * bs, M, causal, window, scale, stream);
+template <typename T>
+int smem_of(int D, int rows, int split_keys, int splits) {
+  switch (D) {
+    case 16: return smem_of_d<T, 16>(rows, split_keys, splits);
+    case 64: return smem_of_d<T, 64>(rows, split_keys, splits);
+    case 128: return smem_of_d<T, 128>(rows, split_keys, splits);
+    case 256: return smem_of_d<T, 256>(rows, split_keys, splits);
+    default: return -1;
   }
-  PagedSrc<float> src{static_cast<const float*>(kp),
-                      static_cast<const float*>(vp), ppos, tbl, M, bs};
-  return launch<float, PagedSrc<float>>(q, q_pos, out, src, B, S, Hq, Hkv,
-                                        D, M * bs, M, causal, window, scale,
-                                        stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B,S,Hq,D), k/v (B,C,Hkv,D), q_pos (B,S), kv_pos (B,C) -> out (B,S,Hq,D)
-int attn_flash(const void* q, const void* k, const void* v, const int* q_pos,
-               const int* kv_pos, void* out, int B, int S, int Hq, int Hkv,
-               int C, int D, int causal, int window, float scale, int is_bf16,
-               void* stream) {
-  return contig(q, k, v, q_pos, kv_pos, out, B, S, Hq, Hkv, C, D, causal,
-                window, scale, is_bf16, stream);
+// dynamic shared memory of one block in bytes (-1: not instantiated)
+int attn_flash_smem(int D, int rows, int split_keys, int splits,
+                    int is_bf16) {
+  return is_bf16 ? smem_of<__nv_bfloat16>(D, rows, split_keys, splits)
+                 : smem_of<float>(D, rows, split_keys, splits);
 }
 
-// q (B,S,Hq,D), kp/vp (nb,bs,Hkv,D), ppos (nb,bs), tbl (B,M), q_pos (B,S)
+// q (B,S,Hq,D), k/v (B,C,Hkv,D), q_pos (B,S), kv_pos (B,C) -> out
+// (B,S,Hq,D).  With slots = B * Hkv * ceil(S * G / rows) and splits =
+// ceil(C / split_keys) > 1: ws is an fp32 workspace of slots * splits *
+// rows * (D + 2) floats; cnt holds slots int32 counters, 0 on entry and on
+// exit (neither is touched with one split).
+int attn_flash(const void* q, const void* k, const void* v, const int* q_pos,
+               const int* kv_pos, void* out, float* ws, int* cnt, int B,
+               int S, int Hq, int Hkv, int C, int D, int causal, int window,
+               int rows, int split_keys, int p_split, float scale,
+               int is_bf16, void* stream) {
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    ContigSrc<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
+                     kv_pos, C};
+    return launch<T>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D, C,
+                     split_keys, causal, window, p_split, scale, stream);
+  }
+  ContigSrc<float> src{static_cast<const float*>(k),
+                       static_cast<const float*>(v), kv_pos, C};
+  return launch<float>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D, C,
+                       split_keys, causal, window, p_split, scale, stream);
+}
+
+// q (B,S,Hq,D), kp/vp (nb,bs,Hkv,D), ppos (nb,bs), tbl (B,M), q_pos (B,S);
+// ws and cnt as for attn_flash, with capacity M * bs
 int attn_paged_flash(const void* q, const void* kp, const void* vp,
                      const int* ppos, const int* tbl, const int* q_pos,
-                     void* out, int B, int S, int Hq, int Hkv, int bs, int M,
-                     int D, int causal, int window, float scale, int is_bf16,
-                     void* stream) {
-  return paged(q, kp, vp, ppos, tbl, q_pos, out, B, S, Hq, Hkv, bs, M, D,
-               causal, window, scale, is_bf16, stream);
+                     void* out, float* ws, int* cnt, int B, int S, int Hq,
+                     int Hkv, int bs, int M, int D, int causal, int window,
+                     int rows, int split_keys, int p_split, float scale,
+                     int is_bf16, void* stream) {
+  if (bs < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    PagedSrc<T> src{static_cast<const T*>(kp), static_cast<const T*>(vp),
+                    ppos, tbl, M, bs};
+    return launch<T>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D,
+                     M * bs, split_keys, causal, window, p_split, scale,
+                     stream);
+  }
+  PagedSrc<float> src{static_cast<const float*>(kp),
+                      static_cast<const float*>(vp), ppos, tbl, M, bs};
+  return launch<float>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D,
+                       M * bs, split_keys, causal, window, p_split, scale,
+                       stream);
 }
 
 }  // extern "C"

@@ -6,6 +6,10 @@
 //   attn_decode        kernels/decode_attention.py _dec_kernel
 //   attn_paged_decode  kernels/paged_attention.py  _paged_dec_kernel
 //
+// (The flash kernels, attn_flash and attn_paged_flash, are in attention.cu
+// and carry this design to S > 1; both sources take their cp.async,
+// ldmatrix and mma helpers from attention_helpers.cuh.)
+//
 // Both are one templated routine, decode_kernel<T, Src, kD>, over a "KV
 // source": ContigKV reads the per-row cache k/v (B, C, Hkv, D) with
 // positions (B, C); PagedKV reads the shared block pool kp/vp (nb, bs, Hkv,
@@ -101,6 +105,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_helpers.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -110,9 +116,6 @@ constexpr int kChunk = 16;                 // keys per warp step: P.V's mma K
 constexpr int kSplitQuantum = kWarps * kChunk;
 constexpr int kMaxSplits = 128;            // attention_common.MAX_SPLITS
 constexpr int kRingBudget = 140 * 1024;    // two ring slots if they fit
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
 
 // elements of T per shared-memory row: D plus 16 bytes of padding
 template <typename T, int kD>
@@ -143,68 +146,6 @@ __host__ __device__ constexpr int ring_region_bytes() {
 
 __device__ __forceinline__ bool key_valid(int p, int qp, int window) {
   return p >= 0 && p <= qp && (!window || qp - p < window);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (no read) when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) = hi + lo, each a bf16 pair (x in the low half)
-__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = *reinterpret_cast<const unsigned*>(&l);
 }
 
 // Contiguous cache: logical entry e of row b is row b * C + e of k/v.
@@ -384,25 +325,6 @@ __device__ __forceinline__ void chunk(State<kD>& st, const float* qs,
       st.acc[j][3] = fmaf(p1, v2.y, st.acc[j][3]);
     }
   }
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<unsigned*>(&a);
-  u.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-__device__ __forceinline__ void fma4(float4& a, float4 v, float x) {
-  a.x = fmaf(v.x, x, a.x);
-  a.y = fmaf(v.y, x, a.y);
-  a.z = fmaf(v.z, x, a.z);
-  a.w = fmaf(v.w, x, a.w);
 }
 
 template <typename T, typename Src, int kD>

@@ -5,8 +5,15 @@ Replaces the reference's ``kernels/flash_attention.py`` ``_fa_kernel``
 (wrapper ``flash_attention_bhsd``) with ``attn_flash`` of
 ``csrc/attention.cu``: q (B,S,Hq,D), k/v (B,C,Hkv,D) read in place (the
 reference's transposes and 128-lane padding are not copied), q_pos (B,S),
-kv_pos (B,C) int32 with -1 = empty.  One block per (b, kv head, tile of 16
-(position, group-head) rows); the key tiles are a loop inside the block.
+kv_pos (B,C) int32 with -1 = empty.  The TPU's sequential KV-block axis
+becomes a split of the keys over blocks: grid (splits, Hkv * row tiles,
+B), each block one split of the keys (``attention_common.flash_split``)
+against a tile of 64 (position, group-head) rows, 64-key tiles brought in
+by ``cp.async`` in their own type, on the tensor cores for bf16; the last
+block of each (b, kv head, row tile) to finish merges the splits'
+partials in split order, in the same launch.  The wrapper allocates the
+partials' workspace and reuses a per-device buffer of ticket counters
+(not the decode kernels').
 
 Bound on the card: bytes = each live K/V entry read once per kv head plus
 q and the output; operations = 4 * D * (query row, head, valid key)
@@ -53,12 +60,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not ac.on_cuda(q, k, v, q_pos, kv_pos):
         return flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
                                      window=window)
-    ac.check_aligned(k, v)
+    ac.check_aligned(q, k, v)
+    ac.check_int32_rows(B * C)
     qp, kvp = ac.as_i32(q_pos), ac.as_i32(kv_pos)
-    out = torch.empty_like(q)
-    ac.launch("attn_flash", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              qp.data_ptr(), kvp.data_ptr(), out.data_ptr(), B, S, Hq, Hkv,
-              C, D, int(causal), int(window), ac.scale_of(D),
-              int(q.dtype == torch.bfloat16), ac.stream(q))
+    out = ac.launch_flash("attn_flash", q, (k.data_ptr(), v.data_ptr(),
+                                            qp.data_ptr(), kvp.data_ptr()),
+                          (C,), Hkv, C, causal, window)
     LAUNCHES["flash"] += 1
     return out

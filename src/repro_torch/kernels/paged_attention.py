@@ -13,17 +13,19 @@ Replaces the reference's ``kernels/paged_attention.py``:
                               block of each (b, kv head), in one launch.
   ``paged_flash_attention``   ``_paged_fa_kernel`` (wrapper
                               ``paged_flash_attention_bhsd``): chunked
-                              prefill, kv head ``h // G``; one block per
-                              (b, kv head, tile of 16 rows);
-                              ``attn_paged_flash`` of ``csrc/attention.cu``.
+                              prefill, kv head ``h // G``;
+                              ``attn_paged_flash`` of ``csrc/attention.cu``,
+                              the same split and in-launch merge over a
+                              tile of 64 (position, group-head) rows per
+                              block (``attention_common.flash_split``).
 
 The pool is read where it lies — kp/vp (nb,bs,Hkv,D), ppos (nb,bs) —
 through tbl (B,M) int32 (-1 = unused column): the reference's
 ``_pool_to_kernel`` transposes and pads the whole pool on every call; the
 port does not.  Each block reads its own table columns in place of the
-TPU's scalar prefetch and loads only valid entries (a -1 column is fully
-masked: the flash kernel skips it, the decode kernel neither loads nor
-computes a chunk of keys that has no valid entry).
+TPU's scalar prefetch and loads only valid entries: a -1 column, an empty
+slot or a key outside every row's range is zero-filled and never read, and
+a tile of keys with no valid entry is neither loaded nor computed.
 
 Bound on the card: each live K/V entry read once per kv head (plus its
 position), q and the output, over 3.35 TB/s; or 4 * D operations per valid
@@ -108,14 +110,14 @@ def paged_flash_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     if not ac.on_cuda(q, kp, vp, ppos, tbl, q_pos):
         return paged_flash_attention_plain(q, kp, vp, ppos, tbl, q_pos,
                                            causal=causal, window=window)
-    ac.check_aligned(kp, vp)
-    B, S, Hq, D = q.shape
+    ac.check_aligned(q, kp, vp)
     bs, Hkv = kp.shape[1], kp.shape[2]
+    M = tbl.shape[1]
+    ac.check_int32_rows(kp.shape[0] * bs)
     pp, tb, qp = ac.as_i32(ppos), ac.as_i32(tbl), ac.as_i32(q_pos)
-    out = torch.empty_like(q)
-    ac.launch("attn_paged_flash", q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-              pp.data_ptr(), tb.data_ptr(), qp.data_ptr(), out.data_ptr(), B,
-              S, Hq, Hkv, bs, tbl.shape[1], D, int(causal), int(window),
-              ac.scale_of(D), int(q.dtype == torch.bfloat16), ac.stream(q))
+    out = ac.launch_flash("attn_paged_flash", q,
+                          (kp.data_ptr(), vp.data_ptr(), pp.data_ptr(),
+                           tb.data_ptr(), qp.data_ptr()),
+                          (bs, M), Hkv, M * bs, causal, window)
     LAUNCHES["paged_flash"] += 1
     return out

@@ -412,6 +412,133 @@ def test_attention_kernels_at_head_dim_256(dev):
             _check_decode(c, window, dev, tol)
 
 
+def _flash_calls(g, window):
+    """{name: (module, kernel call, plain call)} of both flash kernels."""
+    dense = (g["q"], g["k"], g["v"], g["q_pos"], g["kv_pos"])
+    pool = (g["q"], g["kp"], g["vp"], g["ppos"], g["tbl"], g["q_pos"])
+    return {
+        "flash": (fa_k, lambda: fa_k.flash_attention(*dense, window=window),
+                  lambda: fa_k.flash_attention_plain(*dense, window=window)),
+        "paged_flash": (pa_k, lambda: pa_k.paged_flash_attention(
+            *pool, window=window), lambda: pa_k.paged_flash_attention_plain(
+            *pool, window=window)),
+    }
+
+
+def _check_flash(c, window, dev, tol):
+    """Both flash kernels against their plain versions on one case: each
+    call is one launch, two calls are bitwise equal, and the flash ticket
+    counters are back at 0 after the calls."""
+    from repro_torch.kernels import attention_common as ac
+    g = {n: x.to(dev) for n, x in c.items()}
+    for name, (mod, kern, plain) in _flash_calls(g, window).items():
+        n0 = mod.LAUNCHES[name]
+        first, second = kern(), kern()
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES[name] == n0 + 2
+        assert torch.equal(first, second), f"{name}: repeat differs"
+        assert not ac.flash_counters(first.device).any()
+        torch.testing.assert_close(first.float().cpu(),
+                                   plain().float().cpu(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 16, 128])
+def test_flash_kernels_split_at_main_path_shapes(dev, S):
+    """The redesigned flash kernels at the main paths' heads: starcoder2-3b
+    (D 128, Hq 24 over Hkv 2, G 12; 257 table columns of 16, contiguous
+    capacity 2048) and recurrentgemma-9b (D 256, Hq 16 over one kv head,
+    G 16, window 2048), a row of 1031 keys beside shorter ones, fp32 at
+    TIGHT and bf16 at LOOSE; repeats bitwise equal, counters back at 0."""
+    for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+        c = _attn_case(9, [1031, 130, max(S, 40)], S, 24, 2, 128, 16, 257,
+                       dtype, C=2048)
+        _check_flash(c, 0, dev, tol)
+        c = _attn_case(10, [1031, max(S, 300)], S, 16, 1, 256, 16, 129,
+                       dtype, C=2048)
+        _check_flash(c, 2048, dev, tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_ignore_garbage_outside_valid_keys(dev):
+    """Unreferenced pool blocks, slots past a row's length and a -1 table
+    column filled with NaN give output bitwise equal to the same case
+    filled with zeros: such keys are never read (zero-filled copies), so
+    p = 0 never meets NaN in P V."""
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 128),
+                     (torch.bfloat16, 256)):
+        base = _attn_case(11, [150, 70, 40], 37, 24 if D < 256 else 16,
+                          2 if D < 256 else 1, D, 16, 12, dtype)
+        base["tbl"][0, 2] = -1                         # entries 32-47
+        base["kv_pos"][0, 32:48] = -1
+        out = {}
+        for fill in (0.0, float("nan")):
+            c = {n: x.clone() for n, x in base.items()}
+            used = torch.zeros(c["kp"].shape[0], dtype=torch.bool)
+            used[c["tbl"][c["tbl"] >= 0].long()] = True
+            dead = ~used[:, None] | (c["ppos"] < 0)    # (nb, bs)
+            c["kp"][dead] = fill
+            c["vp"][dead] = fill
+            c["k"][c["kv_pos"] < 0] = fill
+            c["v"][c["kv_pos"] < 0] = fill
+            g = {n: x.to(dev) for n, x in c.items()}
+            out[fill == 0.0] = {name: kern() for name, (_, kern, _)
+                                in _flash_calls(g, 0).items()}
+            if fill == 0.0:
+                for name, (_, _, plain) in _flash_calls(g, 0).items():
+                    torch.testing.assert_close(
+                        out[True][name].float().cpu(),
+                        plain().float().cpu(),
+                        **(TIGHT if dtype == torch.float32 else LOOSE))
+        for name in out[True]:
+            assert torch.equal(out[True][name], out[False][name]), name
+
+
+@pytest.mark.cuda
+def test_decode_flash_decode_leave_every_counter_at_zero(dev):
+    """decode -> flash -> decode on one device, as in a token tick: every
+    ticket counter (decode's and flash's buffers) is 0 after each call, and
+    each result equals the same call made alone."""
+    from repro_torch.kernels import attention_common as ac
+    for dtype in (torch.float32, torch.bfloat16):
+        d = {n: x.to(dev) for n, x in _attn_case(
+            12, [700, 1031, 64], 1, 24, 2, 128, 16, 65, dtype).items()}
+        f = {n: x.to(dev) for n, x in _attn_case(
+            13, [1031, 500], 64, 24, 2, 128, 16, 65, dtype).items()}
+        dense = lambda c: (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+        pool = lambda c: (c["q"], c["kp"], c["vp"], c["ppos"], c["tbl"],
+                          c["q_pos"])
+        alone = {"decode": dec_k.decode_attention(*dense(d)),
+                 "paged_decode": pa_k.paged_decode_attention(*pool(d)),
+                 "flash": fa_k.flash_attention(*dense(f)),
+                 "paged_flash": pa_k.paged_flash_attention(*pool(f))}
+        seq = [("decode", lambda: dec_k.decode_attention(*dense(d))),
+               ("flash", lambda: fa_k.flash_attention(*dense(f))),
+               ("paged_decode", lambda: pa_k.paged_decode_attention(
+                   *pool(d))),
+               ("paged_flash", lambda: pa_k.paged_flash_attention(*pool(f))),
+               ("decode", lambda: dec_k.decode_attention(*dense(d)))]
+        for name, call in seq:
+            got = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, alone[name]), name
+            assert not ac.decode_counters(dev).any()
+            assert not ac.flash_counters(dev).any()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_an_unsupported_head_dim(dev):
+    """D 32 is not instantiated: both flash wrappers raise on the card
+    rather than fall back."""
+    c = {n: x.to(dev) for n, x in _attn_case(
+        14, [40], 8, 4, 2, 32, 16, 4, torch.bfloat16).items()}
+    with pytest.raises(ValueError, match="head dim"):
+        fa_k.flash_attention(c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+    with pytest.raises(ValueError, match="head dim"):
+        pa_k.paged_flash_attention(c["q"], c["kp"], c["vp"], c["ppos"],
+                                   c["tbl"], c["q_pos"])
+
+
 # ---------------------------------------------------------------------------
 # recurrent kernels (RG-LRU scan, chunkwise mLSTM)
 # ---------------------------------------------------------------------------

@@ -37,7 +37,12 @@ SPLITS = (64, 128, 256)
 N_STAMPS = 15
 MAX_BLOCKS = 2048
 
-PRELUDE = '''
+def prelude(n_stamps: int, max_blocks: int, gtime: tuple) -> str:
+    """The device array of stamps and ``STAMP(k)``: thread 0 of each block
+    records ``%globaltimer`` for the stamps in ``gtime`` (comparable across
+    SMs) and ``clock64`` (SM cycles) for the others."""
+    cond = " || ".join(f"k == {k}" for k in gtime)
+    return '''
 __device__ unsigned long long g_probe[%d][%d];
 __device__ __forceinline__ unsigned long long probe_gtime() {
   unsigned long long t;
@@ -47,9 +52,12 @@ __device__ __forceinline__ unsigned long long probe_gtime() {
 #define STAMP(k) do { if (threadIdx.x == 0) { \\
   const int b_ = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * \\
                                             blockIdx.z); \\
-  if (b_ < %d) g_probe[k][b_] = (k == 0 || k == 7) ? probe_gtime() \\
-                                                   : clock64(); } } while (0)
-''' % (N_STAMPS, MAX_BLOCKS, MAX_BLOCKS)
+  if (b_ < %d) g_probe[k][b_] = (%s) ? probe_gtime() : clock64(); } \\
+  } while (0)
+''' % (n_stamps, max_blocks, max_blocks, cond)
+
+
+PRELUDE = prelude(N_STAMPS, MAX_BLOCKS, (0, 7))
 
 EXPORTS = '''extern "C" {
 int probe_read(void* host) {
@@ -106,6 +114,27 @@ def instrument(src: str) -> str:
     return s.replace('extern "C" {\n', EXPORTS, 1)
 
 
+def build_instrumented(build, name: str, instrument, subdir: str):
+    """Build ``instrument(csrc/<name>.cu text)`` (with the ``csrc``
+    headers) under ``_build/<subdir>/`` and load it; points ``build`` at
+    that copy for the rest of the process.  Returns the library, its stamp
+    readers declared."""
+    probe_dir = build.BUILD_DIR / subdir
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    (probe_dir / f"{name}.cu").write_text(
+        instrument((build.CSRC / f"{name}.cu").read_text()))
+    for header in build.CSRC.glob("*.cuh"):
+        (probe_dir / header.name).write_text(header.read_text())
+    build.CSRC, build.BUILD_DIR = probe_dir, probe_dir / "_build"
+    build.load.cache_clear()
+    build.bind.cache_clear()
+    t0 = time.perf_counter()
+    lib = build.load(name)
+    print(f"instrumented build {time.perf_counter() - t0:.1f} s", flush=True)
+    lib.probe_read.argtypes = lib.probe_zero.argtypes = [ctypes.c_void_p]
+    return lib
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -118,17 +147,7 @@ def main() -> int:
     from repro_torch.kernels import attention_common as ac
     from repro_torch.kernels import build
 
-    probe_dir = build.BUILD_DIR / "probe"
-    probe_dir.mkdir(parents=True, exist_ok=True)
-    (probe_dir / "decode_attention.cu").write_text(
-        instrument((build.CSRC / "decode_attention.cu").read_text()))
-    build.CSRC, build.BUILD_DIR = probe_dir, probe_dir / "_build"
-    build.load.cache_clear()
-    build.bind.cache_clear()
-    t0 = time.perf_counter()
-    lib = build.load("decode_attention")
-    print(f"instrumented build {time.perf_counter() - t0:.1f} s", flush=True)
-    lib.probe_read.argtypes = lib.probe_zero.argtypes = [ctypes.c_void_p]
+    lib = build_instrumented(build, "decode_attention", instrument, "probe")
     card = cs.card_line()
 
     dev = torch.device("cuda")
