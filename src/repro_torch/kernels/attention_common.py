@@ -37,9 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: {source under csrc/: ((C entry point, argtypes), ...)}
 _LIBRARIES = {
     "attention": (
-        ("attn_flash", (_P,) * 8 + (_I,) * 11 + (_F, _I, _P)),
-        ("attn_paged_flash", (_P,) * 9 + (_I,) * 12 + (_F, _I, _P)),
-        ("attn_flash_smem", (_I,) * 5),
+        ("attn_flash", (_P,) * 8 + (_I,) * 10 + (_F, _I, _P)),
+        ("attn_paged_flash", (_P,) * 9 + (_I,) * 11 + (_F, _I, _P)),
     ),
     "decode_attention": (
         ("attn_decode", (_P,) * 8 + (_I,) * 7 + (_F, _I, _P)),
@@ -60,7 +59,6 @@ FLASH_ROWS = 64            # query rows per block, bf16: 64 or 128 (kBR)
 FLASH_TILE = 64            # keys per tile (kTileK); splits are multiples
 FLASH_SPLIT_KEYS = 256     # keys per split unless the grid is small
 FLASH_MAX_SPLITS = 64      # kMaxSplits of attention.cu
-FLASH_P_SPLIT = True       # P V as P_hi + P_lo (two bf16 mmas), bf16 only
 SMS = 132                  # an H100 SXM's SMs, where no card is asked
 
 
@@ -211,10 +209,20 @@ def flash_split(B: int, S: int, G: int, Hkv: int, capacity: int, *,
 
 def flash_smem_bytes(D: int, dtype: torch.dtype, rows: int, split_keys: int,
                      splits: int) -> int:
-    """Dynamic shared memory of one flash block (builds the library)."""
-    lib = build.bind("attention", _LIBRARIES["attention"])
-    return lib.attn_flash_smem(D, rows, split_keys, splits,
-                               int(dtype == torch.bfloat16))
+    """Dynamic shared memory of one flash block, as ``smem_bytes`` of
+    attention.cu counts it: q's rows, the K/V ring (two stages where they
+    fit the 223 KB, else one; in the merging block it also holds every
+    split's m and l), fp32's P scratch, and the split's positions and tile
+    list.  Each shared-memory row is D plus 16 bytes of padding."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    row = (D + 16 // size) * size
+    q = rows * row
+    stage = 2 * FLASH_TILE * row
+    scratch = 0 if size == 2 else rows * (FLASH_TILE + 4) * 4
+    ring = 2 if q + 2 * stage + scratch + 16 * 1024 <= 223 * 1024 else 1
+    region = max(ring * stage, 8 * splits * rows)
+    return (q + region + scratch
+            + 4 * (2 * split_keys + split_keys // FLASH_TILE))
 
 
 @functools.cache
@@ -245,8 +253,8 @@ def launch_flash(name: str, q: torch.Tensor, kv_ptrs: tuple, dims: tuple,
     launch(name, q.data_ptr(), *kv_ptrs, out.data_ptr(),
            0 if ws is None else ws.data_ptr(),
            0 if cnt is None else cnt.data_ptr(), B, S, Hq, Hkv, *dims, D,
-           int(causal), int(window), rows, split_keys, int(FLASH_P_SPLIT),
-           scale_of(D), int(q.dtype == torch.bfloat16), stream(q))
+           int(causal), int(window), rows, split_keys, scale_of(D),
+           int(q.dtype == torch.bfloat16), stream(q))
     return out
 
 

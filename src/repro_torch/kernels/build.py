@@ -4,9 +4,9 @@ Each source is compiled on first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, then loaded
 with ``ctypes``.  No PyTorch headers are involved, so a build takes
 seconds.  The library lands in ``kernels/_build/`` (git-ignored) under a
-name keyed by a hash of the source text, of every header under ``csrc/``
-(``*.cuh``, which the sources include) and of the flags: an edited source
-or header builds afresh, an unchanged one is reused.  The compiler's
+name keyed by a hash of the source text, of the ``csrc/`` headers it
+``#include``s in quotes and of the flags: an edited source or header
+builds afresh, an unchanged one is reused.  The compiler's
 register and shared-memory report (``-Xptxas=-v``) is kept beside the
 library.
 
@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,16 +43,22 @@ def nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def source_key(name: str) -> str:
+    """The library key of ``csrc/<name>.cu``: a hash of its text, of the
+    ``csrc/`` headers it includes in quotes, and of the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.encode() + (CSRC / h).read_bytes() for h in sorted(
+        set(re.findall(r'^#include "([^"]+)"', text.decode(), re.M))))
+    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its keyed library exists; returns
     the library's path.  The output is written under a temporary name and
     renamed into place, so concurrent builders never load a half-written
     file."""
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes() + b"".join(
-        h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}_{key}.so"
+    out = BUILD_DIR / f"{name}_{source_key(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

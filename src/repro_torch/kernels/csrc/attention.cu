@@ -81,9 +81,10 @@
 //      the bf16 x bf16 products are exact in fp32, so only the order of the
 //      sum differs from the reference); the softmax runs once per tile on
 //      the accumulators; P V is 4 x (D / 8) mmas.  P stays fp32 in the
-//      reference (which casts V to fp32 before the product), so by default
-//      P = P_hi + P_lo (both bf16) and P V is two mmas per 8 output dims:
-//      16 bits of P's mantissa (p_split = 0 rounds P once to bf16: one mma).
+//      reference (which casts V to fp32 before the product), so P = P_hi
+//      + P_lo (both bf16) and P V is two mmas per 8 output dims: 16 bits
+//      of P's mantissa, for 3-5% of the call's time over rounding P once
+//      (on an H100; tools/torch_flash_ablate.py times both).
 //      Q, K and V fragments come from shared memory with ldmatrix (V
 //      transposed); rows are padded by 16 bytes so those reads are free of
 //      bank conflicts.  fp32 inputs (the tests and the card-vs-CPU checks)
@@ -329,7 +330,7 @@ __device__ __forceinline__ void tile_softmax(State<kD>& st, float (&s)[8][4],
 template <int kD>
 __device__ __forceinline__ void tile_pv(State<kD>& st, const float (&s)[8][4],
                                         const __nv_bfloat16* vs, float*,
-                                        int lane, int p_split) {
+                                        int lane) {
   constexpr int RS = row_elems<__nv_bfloat16, kD>();
   const int r8 = lane % 8, m1 = (lane / 8) & 1, m2 = lane / 16;
 #pragma unroll
@@ -345,10 +346,8 @@ __device__ __forceinline__ void tile_pv(State<kD>& st, const float (&s)[8][4],
       ldsm_x4_t(bv, vs + (kt * 16 + r8 + m1 * 8) * RS + j * 16 + m2 * 8);
       mma_bf16(st.acc[2 * j], ph, bv[0], bv[1]);
       mma_bf16(st.acc[2 * j + 1], ph, bv[2], bv[3]);
-      if (p_split) {
-        mma_bf16(st.acc[2 * j], pl, bv[0], bv[1]);
-        mma_bf16(st.acc[2 * j + 1], pl, bv[2], bv[3]);
-      }
+      mma_bf16(st.acc[2 * j], pl, bv[0], bv[1]);
+      mma_bf16(st.acc[2 * j + 1], pl, bv[2], bv[3]);
     }
   }
 }
@@ -357,8 +356,8 @@ __device__ __forceinline__ void tile_pv(State<kD>& st, const float (&s)[8][4],
 // kPStride floats), then each key's V row meets its two rows' p.
 template <int kD>
 __device__ __forceinline__ void tile_pv(State<kD>& st, const float (&s)[8][4],
-                                        const float* vs, float* ps, int lane,
-                                        int) {
+                                        const float* vs, float* ps,
+                                        int lane) {
   constexpr int RS = row_elems<float, kD>();
   const int g = lane / 4, c0 = (lane % 4) * 2;
 #pragma unroll
@@ -397,7 +396,7 @@ __global__ void __launch_bounds__(kBR * 2)
 flash_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
              T* __restrict__ out, float* __restrict__ ws, int* cnt, Src src,
              int S, int Hq, int Hkv, int row_tiles, int split_keys,
-             int causal, int window, int p_split, float scale) {
+             int causal, int window, float scale) {
   constexpr int kWarps = kBR / 16;
   constexpr int kThreads = kWarps * 32;
   constexpr int kRing = ring_depth<T, kD, kBR>();
@@ -582,7 +581,7 @@ flash_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
         tile_scores<kD>(s, qs + wrow * RS, kd, lane);
         tile_softmax<kD>(st, s, epos + tlist[it] * kTileK, qp, rok, causal,
                          window, scale2, lane);
-        tile_pv<kD>(st, s, kd + kTileK * RS, ps, lane, p_split);
+        tile_pv<kD>(st, s, kd + kTileK * RS, ps, lane);
       }
       if constexpr (kRing == 1) __syncthreads();
     }
@@ -746,8 +745,8 @@ flash_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
 template <typename T, typename Src, int kD, int kBR>
 int launch_r(const void* q, const int* q_pos, void* out, float* ws, int* cnt,
              Src src, int B, int S, int Hq, int Hkv, int capacity,
-             int split_keys, int causal, int window, int p_split,
-             float scale, void* stream) {
+             int split_keys, int causal, int window, float scale,
+             void* stream) {
   const int G = Hq / Hkv;
   const int row_tiles = (S * G + kBR - 1) / kBR;
   if (B == 0 || row_tiles == 0) return static_cast<int>(cudaSuccess);
@@ -769,7 +768,7 @@ int launch_r(const void* q, const int* q_pos, void* out, float* ws, int* cnt,
   kernel<<<grid, kBR * 2, static_cast<size_t>(shmem),
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), q_pos, static_cast<T*>(out), ws, cnt, src, S,
-      Hq, Hkv, row_tiles, split_keys, causal, window, p_split, scale);
+      Hq, Hkv, row_tiles, split_keys, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -777,17 +776,17 @@ int launch_r(const void* q, const int* q_pos, void* out, float* ws, int* cnt,
 template <typename T, typename Src, int kD>
 int launch_d(int rows, const void* q, const int* q_pos, void* out, float* ws,
              int* cnt, Src src, int B, int S, int Hq, int Hkv, int capacity,
-             int split_keys, int causal, int window, int p_split,
-             float scale, void* stream) {
+             int split_keys, int causal, int window, float scale,
+             void* stream) {
   if (rows == 64)
     return launch_r<T, Src, kD, 64>(q, q_pos, out, ws, cnt, src, B, S, Hq,
                                     Hkv, capacity, split_keys, causal, window,
-                                    p_split, scale, stream);
+                                    scale, stream);
   if constexpr (sizeof(T) == 2) {
     if (rows == 128)
       return launch_r<T, Src, kD, 128>(q, q_pos, out, ws, cnt, src, B, S, Hq,
                                        Hkv, capacity, split_keys, causal,
-                                       window, p_split, scale, stream);
+                                       window, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -795,8 +794,8 @@ int launch_d(int rows, const void* q, const int* q_pos, void* out, float* ws,
 template <typename T, typename Src>
 int launch(int rows, const void* q, const int* q_pos, void* out, float* ws,
            int* cnt, Src src, int B, int S, int Hq, int Hkv, int D,
-           int capacity, int split_keys, int causal, int window, int p_split,
-           float scale, void* stream) {
+           int capacity, int split_keys, int causal, int window, float scale,
+           void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0 || split_keys < kTileK ||
       split_keys % kTileK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -804,54 +803,27 @@ int launch(int rows, const void* q, const int* q_pos, void* out, float* ws,
     case 16:
       return launch_d<T, Src, 16>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq,
                                   Hkv, capacity, split_keys, causal, window,
-                                  p_split, scale, stream);
+                                  scale, stream);
     case 64:
       return launch_d<T, Src, 64>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq,
                                   Hkv, capacity, split_keys, causal, window,
-                                  p_split, scale, stream);
+                                  scale, stream);
     case 128:
       return launch_d<T, Src, 128>(rows, q, q_pos, out, ws, cnt, src, B, S,
                                    Hq, Hkv, capacity, split_keys, causal,
-                                   window, p_split, scale, stream);
+                                   window, scale, stream);
     case 256:
       return launch_d<T, Src, 256>(rows, q, q_pos, out, ws, cnt, src, B, S,
                                    Hq, Hkv, capacity, split_keys, causal,
-                                   window, p_split, scale, stream);
+                                   window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T, int kD>
-int smem_of_d(int rows, int split_keys, int splits) {
-  if (rows == 64)
-    return static_cast<int>(smem_bytes<T, kD, 64>(split_keys, splits));
-  if (rows == 128 && sizeof(T) == 2)
-    return static_cast<int>(smem_bytes<T, kD, 128>(split_keys, splits));
-  return -1;
-}
-
-template <typename T>
-int smem_of(int D, int rows, int split_keys, int splits) {
-  switch (D) {
-    case 16: return smem_of_d<T, 16>(rows, split_keys, splits);
-    case 64: return smem_of_d<T, 64>(rows, split_keys, splits);
-    case 128: return smem_of_d<T, 128>(rows, split_keys, splits);
-    case 256: return smem_of_d<T, 256>(rows, split_keys, splits);
-    default: return -1;
   }
 }
 
 }  // namespace
 
 extern "C" {
-
-// dynamic shared memory of one block in bytes (-1: not instantiated)
-int attn_flash_smem(int D, int rows, int split_keys, int splits,
-                    int is_bf16) {
-  return is_bf16 ? smem_of<__nv_bfloat16>(D, rows, split_keys, splits)
-                 : smem_of<float>(D, rows, split_keys, splits);
-}
 
 // q (B,S,Hq,D), k/v (B,C,Hkv,D), q_pos (B,S), kv_pos (B,C) -> out
 // (B,S,Hq,D).  With slots = B * Hkv * ceil(S * G / rows) and splits =
@@ -861,19 +833,19 @@ int attn_flash_smem(int D, int rows, int split_keys, int splits,
 int attn_flash(const void* q, const void* k, const void* v, const int* q_pos,
                const int* kv_pos, void* out, float* ws, int* cnt, int B,
                int S, int Hq, int Hkv, int C, int D, int causal, int window,
-               int rows, int split_keys, int p_split, float scale,
-               int is_bf16, void* stream) {
+               int rows, int split_keys, float scale, int is_bf16,
+               void* stream) {
   if (is_bf16) {
     using T = __nv_bfloat16;
     ContigSrc<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
                      kv_pos, C};
     return launch<T>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D, C,
-                     split_keys, causal, window, p_split, scale, stream);
+                     split_keys, causal, window, scale, stream);
   }
   ContigSrc<float> src{static_cast<const float*>(k),
                        static_cast<const float*>(v), kv_pos, C};
   return launch<float>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D, C,
-                       split_keys, causal, window, p_split, scale, stream);
+                       split_keys, causal, window, scale, stream);
 }
 
 // q (B,S,Hq,D), kp/vp (nb,bs,Hkv,D), ppos (nb,bs), tbl (B,M), q_pos (B,S);
@@ -882,22 +854,20 @@ int attn_paged_flash(const void* q, const void* kp, const void* vp,
                      const int* ppos, const int* tbl, const int* q_pos,
                      void* out, float* ws, int* cnt, int B, int S, int Hq,
                      int Hkv, int bs, int M, int D, int causal, int window,
-                     int rows, int split_keys, int p_split, float scale,
-                     int is_bf16, void* stream) {
+                     int rows, int split_keys, float scale, int is_bf16,
+                     void* stream) {
   if (bs < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
     using T = __nv_bfloat16;
     PagedSrc<T> src{static_cast<const T*>(kp), static_cast<const T*>(vp),
                     ppos, tbl, M, bs};
     return launch<T>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D,
-                     M * bs, split_keys, causal, window, p_split, scale,
-                     stream);
+                     M * bs, split_keys, causal, window, scale, stream);
   }
   PagedSrc<float> src{static_cast<const float*>(kp),
                       static_cast<const float*>(vp), ppos, tbl, M, bs};
   return launch<float>(rows, q, q_pos, out, ws, cnt, src, B, S, Hq, Hkv, D,
-                       M * bs, split_keys, causal, window, p_split, scale,
-                       stream);
+                       M * bs, split_keys, causal, window, scale, stream);
 }
 
 }  // extern "C"

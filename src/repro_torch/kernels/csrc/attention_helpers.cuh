@@ -4,8 +4,8 @@
 //
 // Included by both sources, each built into its own library, so every
 // definition is internal (an anonymous namespace).  kernels/build.py keys
-// a library on the hash of its source AND of every header under csrc/, so
-// an edit here rebuilds both.
+// a library on the hash of its source AND of the csrc/ headers it
+// includes, so an edit here rebuilds both.
 
 #pragma once
 

@@ -460,6 +460,23 @@ def test_flash_kernels_split_at_main_path_shapes(dev, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 16, 128])
+def test_flash_kernels_at_128_rows_per_block(dev, S, monkeypatch):
+    """The bf16 instances of 128 rows per block (8 warps), which the sweep
+    in chip_smoke.py times beside the default 64: the same main-path cases
+    within LOOSE, repeats bitwise equal, counters back at 0."""
+    from repro_torch.kernels import attention_common as ac
+    monkeypatch.setattr(ac, "FLASH_ROWS", 128)
+    assert ac.flash_rows(torch.bfloat16) == 128
+    c = _attn_case(9, [1031, 130, max(S, 40)], S, 24, 2, 128, 16, 257,
+                   torch.bfloat16, C=2048)
+    _check_flash(c, 0, dev, LOOSE)
+    c = _attn_case(10, [1031, max(S, 300)], S, 16, 1, 256, 16, 129,
+                   torch.bfloat16, C=2048)
+    _check_flash(c, 2048, dev, LOOSE)
+
+
+@pytest.mark.cuda
 def test_flash_kernels_ignore_garbage_outside_valid_keys(dev):
     """Unreferenced pool blocks, slots past a row's length and a -1 table
     column filled with NaN give output bitwise equal to the same case

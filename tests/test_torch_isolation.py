@@ -146,3 +146,25 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_library_key_follows_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """A kernel library is rebuilt when its source or a csrc/ header that
+    the source includes changes, and only then: an edit of the attention
+    helpers changes both attention libraries' keys and neither of the
+    others'."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = sorted(f.stem for f in csrc.glob("*.cu"))
+    before = {n: build.source_key(n) for n in names}
+    assert before == {n: build.source_key(n) for n in names}
+    header = csrc / "attention_helpers.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.source_key(n) for n in names}
+    changed = {n for n in names if after[n] != before[n]}
+    assert changed == {"attention", "decode_attention"}
