@@ -10,9 +10,9 @@ wall seconds):
                ``attention.cu``, ``decode_attention.cu`` and
                ``recurrent.cu`` with nvcc for sm_90a, one nvcc per source,
                started together; print the build times, the card's name
-               and power limit, and each decode and flash kernel
-               instance's registers and spills from the ``-Xptxas -v``
-               report.
+               and power limit, and each decode, flash and recurrent
+               kernel instance's registers and spills from the
+               ``-Xptxas -v`` report.
   2. kernels   hold each vision kernel against its plain PyTorch version on
                the card, at the main path's shapes and at edge shapes
                (uint8 frames, box resampling, g=20 with block=8, a bf16
@@ -71,18 +71,27 @@ wall seconds):
                TOKEN_TOL (a stream may part only where the CPU's top-two
                logit margin is below TOKEN_TOL; printed if so).
   9. recurrent the RG-LRU scan (bit-exact) and the chunkwise mLSTM (fp32
-               within MLSTM_TOL, bf16 LOOSE) against their plain versions:
-               at the main paths' shapes (RG-LRU B 1, S 128, W 4096 with
-               h0; mLSTM BH 16, S 512, Dh 512) and at edge shapes (S not a
-               multiple of the chunk or the unroll, W and Dh not multiples
-               of a block, a strongly negative input gate); times with a
-               cold L2 beside the plain versions and the bound.
+               within MLSTM_TOL, bf16 LOOSE) against their plain versions,
+               every case also run twice and required bitwise equal: at
+               the main paths' shapes (RG-LRU B 1, W 4096 at the drain's
+               chunks S 2, 16, 64 and 128 with h0, B 2; mLSTM BH 16, S
+               512, Dh 512) and at edge shapes (S not a multiple of a
+               stage or a chunk, S 128 and 129 at the chunk boundary, B*H
+               1, W and Dh not multiples of a block or of 16 bytes, a
+               strongly negative input gate); bf16 gates read by the
+               kernel equal fp32 gates of the same values bitwise.  Each
+               kernel's grid, block size, shared memory and registers;
+               times with a cold L2 beside the plain versions and the
+               bound (the RG-LRU at S 16 too), then a sweep of the
+               RG-LRU's channels per block, each setting first held
+               bit-exact against the plain version.
  10. rgemma    ``ServeEngine`` on full-width, full-depth recurrentgemma-9b
                (bf16, 8.52 B random parameters drawn on the card from a
                seed), contiguous, slots=8, capacity 2048, chunk 128: the
                16 requests of phase 7; every request complete,
-               ``ledger.check()``, logits finite, kernels 7, 8 and 9
-               launched.  Prints decode ms/tick, decode and prefill
+               ``ledger.check()``, logits finite, kernels 7 and 8
+               launched and kernel 9 launched once in every prefill chunk
+               of two or more tokens of every RG-LRU layer.  Prints decode ms/tick, decode and prefill
                tokens/s, median TTFT and the launches.
  11. xlstm     full-width, full-depth xlstm-350m (bf16): ``prefill`` of 4
                prompts x 512 tokens (the mLSTM kernel in each of its 21
@@ -154,6 +163,8 @@ REC_REPLACES = {
 REC_SOURCE = "src/repro_torch/kernels/csrc/recurrent.cu"
 MLSTM_TOL = dict(rtol=3e-4, atol=3e-4)  # tests/test_kernels.py's mLSTM limit
 MLSTM_CHUNK = 128                       # kernels/mlstm.py DEFAULT_CHUNK
+RGLRU_SWEEP = (16, 32, 64)              # channels per block, RG-LRU
+REC_REGS = {}                           # recurrent.cu instance: registers
 
 # the token main path: starcoder2-3b as served by ServeEngine
 TOK_SLOTS, TOK_CAPACITY, TOK_CHUNK, TOK_BLOCK = 8, 2048, 128, 16
@@ -820,6 +831,34 @@ def mlstm_flops(B, S, H, Dh, chunk=MLSTM_CHUNK):
     return B * H * total
 
 
+def recurrent_report(log: str) -> dict:
+    """{("rglru", channels) or ("mlstm", dtype, gate dtype): (registers,
+    spill bytes)} of the recurrent.cu instances in an ``-Xptxas -v``
+    report."""
+    import re
+    pats = (("rglru", r"Compiling entry function '\S*rglru_kernelILi(\d+)E"),
+            ("mlstm", r"Compiling entry function '\S*mlstm_kernelI"
+                      r"(13__nv_bfloat16|f)(13__nv_bfloat16|S1_|f)E"))
+    dt = lambda m: "f32" if m == "f" else "bf16"
+    out, key, spill = {}, None, None
+    for line in log.splitlines():
+        for kind, pat in pats:
+            m = re.search(pat, line)
+            if m:
+                key = (("rglru", int(m.group(1))) if kind == "rglru" else
+                       ("mlstm", dt(m.group(1)), dt(m.group(2))))
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key] = (int(m.group(1)), spill)
+            key = None
+    return out
+
+
 def check_recurrent(torch, dev):
     """Phase 9.  Returns {name: row} for the JSON line (launches filled in
     from the recurrentgemma and xlstm paths)."""
@@ -839,21 +878,35 @@ def check_recurrent(torch, dev):
         return (q, k, v, normal(B, S, H, shift=i_shift, dtype=gate_dtype),
                 normal(B, S, H, shift=2.0, dtype=gate_dtype))
 
-    # RG-LRU: the main path's chunk (B 1, S 128, W 4096, with h0), S not a
-    # multiple of the unroll and W not a multiple of the block, one step
+    def repeat(name, kern):
+        if not torch.equal(kern(), kern()):
+            fail(f"{name}: two calls on the same inputs differ")
+
+    # RG-LRU: the main path's chunks (B 1, W 4096, S 128 with h0, and the
+    # drain's smaller chunks S 2, 16, 64), S not a multiple of a stage and
+    # W not a multiple of the channels per block, B 2 with h0, one step
+    # at W 77 (4-byte copies)
     errs = {"rglru_scan": 0.0}
-    for B, S, W, with_h0 in ((1, TOK_CHUNK, 4096, True), (2, 37, 1000, False),
-                             (3, 1, 77, True)):
+    shapes = ((1, TOK_CHUNK, 4096, True), (1, 2, 4096, True),
+              (1, 16, 4096, True), (1, 64, 4096, True), (2, 37, 1000, False),
+              (2, TOK_CHUNK, 4096, True), (3, 1, 77, True))
+    for B, S, W, with_h0 in shapes:
         a, b = decay(B, S, W), normal(B, S, W)
         h0 = normal(B, W) if with_h0 else None
         errs["rglru_scan"] = max(errs["rglru_scan"], max_err(
             rglru_k.rglru_scan(a, b, h0), rglru_k.rglru_scan_plain(a, b, h0),
             exact=True))
+        repeat(f"rglru_scan {(B, S, W)}", lambda: rglru_k.rglru_scan(a, b,
+                                                                     h0))
     # mLSTM: xlstm-350m's prefill (B 4 x H 4, S 512, Dh 512), a ragged last
-    # chunk, Dh not a multiple of 32, a strongly negative input gate
+    # chunk, one whole chunk and one row past it, B*H = 1, Dh not a
+    # multiple of the tiles (48, 20: rows not 16-byte multiples in bf16), a
+    # strongly negative input gate
     m_err = {}
     for B, S, H, Dh, shift in ((4, 512, 4, 512, 0.0), (1, 200, 2, 64, 0.0),
-                               (2, 37, 3, 48, 0.0), (1, 300, 2, 32, -40.0)):
+                               (1, 128, 1, 512, 0.0), (1, 129, 2, 64, 0.0),
+                               (2, 37, 3, 48, 0.0), (2, 20, 1, 20, 0.0),
+                               (1, 300, 2, 32, -40.0)):
         for dtype, tol in ((torch.float32, MLSTM_TOL),
                            (torch.bfloat16, LOOSE)):
             x = mcase(B, S, H, Dh, dtype, shift)
@@ -861,20 +914,46 @@ def check_recurrent(torch, dev):
                 f" i{shift:+g}" if shift else "")
             m_err[key] = max_err(mlstm_k.mlstm_chunkwise(*x),
                                  mlstm_k.mlstm_chunkwise_plain(*x), tol=tol)
+            repeat(f"mlstm_chunkwise {key}",
+                   lambda: mlstm_k.mlstm_chunkwise(*x))
     errs["mlstm_chunkwise"] = max(m_err.values())
     torch.cuda.synchronize()
-    print(f"rglru_scan: bit-identical to its plain version at (B, S, W) = "
-          f"(1, {TOK_CHUNK}, 4096) with h0, (2, 37, 1000), (3, 1, 77)",
-          flush=True)
+    print("rglru_scan: bit-identical to its plain version, two calls bitwise "
+          "equal, at (B, S, W, h0) = "
+          + ", ".join(str(sh) for sh in shapes), flush=True)
     print(f"mlstm_chunkwise: max abs err vs plain (fp32 tol {MLSTM_TOL}, "
-          f"bf16 LOOSE): {m_err}", flush=True)
+          f"bf16 LOOSE), two calls bitwise equal: {m_err}", flush=True)
 
     # times at the main paths' shapes: the RG-LRU in fp32 as the model
-    # calls it; the mLSTM in bf16 with bf16 gates, as xlstm-350m's prefill
+    # calls it, at the drain's full chunk and at S 16; the mLSTM in bf16
+    # with bf16 gates, as xlstm-350m's prefill calls it (the kernel reads
+    # them: one launch a call)
     a, b, h0 = decay(1, TOK_CHUNK, 4096), normal(1, TOK_CHUNK, 4096), normal(
         1, 4096)
+    a16, b16 = a[:, :16].contiguous(), b[:, :16].contiguous()
     xs = mcase(4, 512, 4, 512, torch.bfloat16, gate_dtype=torch.bfloat16)
+    if not torch.equal(mlstm_k.mlstm_chunkwise(*xs), mlstm_k.mlstm_chunkwise(
+            *xs[:3], *(g.float() for g in xs[3:]))):
+        fail("mlstm_chunkwise: bf16 gates and fp32 gates of the same values "
+             "differ")
     B, S, H, Dh = xs[0].shape
+    W = a.shape[2]
+    smem = mlstm_k.mlstm_smem_bytes(Dh, torch.bfloat16)
+    if smem != mlstm_k.kernel_smem_bytes(Dh, torch.bfloat16):
+        fail("mlstm_smem_bytes disagrees with the kernel's own count")
+    print(f"kernel rglru_scan (1, {TOK_CHUNK}, {W}): grid "
+          f"{rglru_k.rglru_grid(1, W)} of {rglru_k.SCAN_THREADS} threads, "
+          f"{rglru_k.CHANNELS_PER_BLOCK} channels a block, "
+          f"{rglru_k.rglru_smem_bytes()} B dynamic shared memory, "
+          f"{REC_REGS.get(('rglru', rglru_k.CHANNELS_PER_BLOCK))} "
+          f"(registers, B spilled)", flush=True)
+    print(f"kernel mlstm_chunkwise ({B}, {S}, {H}, {Dh}) bf16: grid "
+          f"{mlstm_k.mlstm_grid(B, H, Dh)} of {mlstm_k.THREADS} threads, "
+          f"{mlstm_k.VALUE_COLS} value columns a block, {smem} B dynamic "
+          f"shared memory, "
+          f"{REC_REGS.get(('mlstm', 'bf16', 'bf16'))} "
+          f"(registers, B spilled); bf16 gates equal fp32 gates bitwise",
+          flush=True)
     plan = {
         "rglru_scan": (lambda: rglru_k.rglru_scan(a, b, h0),
                        lambda: rglru_k.rglru_scan_plain(a, b, h0),
@@ -900,7 +979,34 @@ def check_recurrent(torch, dev):
               f"{r['plain_ms']:.4f} ms  library none  bound "
               f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    ms16 = time_ms(lambda: rglru_k.rglru_scan(a16, b16, h0))
+    b16_ms, _ = bound(12 * a16.numel() + 4 * h0.numel(), 0)
+    print(f"kernel rglru_scan at S 16: cold L2 {ms16:.4f} ms (S "
+          f"{TOK_CHUNK}: {rows['rglru_scan']['ms']:.4f}), bound "
+          f"{b16_ms * 1e3:.2f} us", flush=True)
+    # channels per block: each setting held bit-exact, then timed
+    default, cells = rglru_k.CHANNELS_PER_BLOCK, []
+    want = rglru_k.rglru_scan_plain(a, b, h0)
+    try:
+        for channels in RGLRU_SWEEP:
+            rglru_k.CHANNELS_PER_BLOCK = channels
+            max_err(rglru_k.rglru_scan(a, b, h0), want, exact=True)
+            cells.append(f"{channels}: "
+                         f"{time_ms(lambda: rglru_k.rglru_scan(a, b, h0)):.4f}")
+    finally:
+        rglru_k.CHANNELS_PER_BLOCK = default
+    print(f"kernel rglru_scan (1, {TOK_CHUNK}, {W}): channels per block -> "
+          f"cold-L2 ms  " + "  ".join(cells) + f" (default {default}; each "
+          f"setting bit-exact first)", flush=True)
     return rows
+
+
+def prefill_chunks(lengths, chunk=TOK_CHUNK) -> int:
+    """Prefill chunks of two or more tokens that ``ServeEngine`` runs for
+    prompts of ``lengths`` (descending powers of two up to ``chunk``; a
+    1-token chunk takes the decode step, not the scan)."""
+    return sum(L // chunk + bin(L % chunk).count("1") - (L & 1)
+               for L in lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -1042,7 +1148,7 @@ def draw_on_card(torch, cfg, dev):
 
 def recurrentgemma_main_path(torch, dev, card):
     """Phase 10.  Returns the drain's launch counts."""
-    from repro_torch.config import get_arch
+    from repro_torch.config import RGLRU, get_arch
     from repro_torch.kernels import ops as kops
     from repro_torch.obs.tracing import SpanTracer
     from repro_torch.serving import Request
@@ -1064,6 +1170,12 @@ def recurrentgemma_main_path(torch, dev, card):
     for name in ("flash", "decode", "rglru_scan"):
         if launches[name] == 0:
             fail(f"recurrentgemma-9b path never launched {name}")
+    want = prefill_chunks([len(r.tokens) for r in reqs]) * sum(
+        kind == RGLRU for kind in cfg.layer_kinds())
+    if launches["rglru_scan"] != want:
+        fail(f"recurrentgemma-9b drain launched rglru_scan "
+             f"{launches['rglru_scan']} times, not once in each of its "
+             f"prefill chunks of >= 2 tokens in each RG-LRU layer ({want})")
     report_drain("recurrentgemma-9b contiguous", eng, done, dt, tracer, card,
                  launches)
     del eng, params
@@ -1281,6 +1393,15 @@ def main() -> int:
                 f" rows {key[3]}" if len(key) > 3 else "")
             print(f"{kernel} kernel {what}: {regs} registers, {spill} B "
                   f"spilled", flush=True)
+    log = built["recurrent"][0].with_suffix(".log")
+    REC_REGS.update(recurrent_report(log.read_text() if log.exists() else ""))
+    if not REC_REGS:
+        fail("no recurrent kernel instance in the ptxas report")
+    for key, (regs, spill) in sorted(REC_REGS.items()):
+        what = (f"rglru {key[1]} channels" if key[0] == "rglru" else
+                f"mlstm {key[1]} gates {key[2]}")
+        print(f"recurrent kernel {what}: {regs} registers, {spill} B "
+              f"spilled", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 

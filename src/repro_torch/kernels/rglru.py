@@ -3,9 +3,14 @@
 Replaces the reference's ``kernels/rglru.py`` ``_rglru_kernel`` (wrapper
 ``rglru_scan_blocked``) with ``rglru_scan`` of ``csrc/recurrent.cu``:
 a, b (B,S,W) fp32 and h0 (B,W) fp32 (or None: zeros) -> h (B,S,W) fp32.
-One thread per channel walks all of time with the carry in a register;
-the Pallas kernel's (bs, bw) VMEM blocks and its 128-lane padding of W are
-TPU layout choices and are not carried over.
+Each channel's recurrence stays one sequential chain (a time-parallel scan
+would reassociate the sums).  A block owns ``CHANNELS_PER_BLOCK``
+neighbouring channels, so B 1 x W 4096 gives 128 blocks; all of its
+threads copy the block's (time x channels) tiles of a and b into shared
+memory by ``cp.async`` in stages of 32 steps, four stages in flight, and
+one thread per channel walks the chain as the stages land.  The Pallas
+kernel's (bs, bw) VMEM blocks and its 128-lane padding of W are TPU layout
+choices and are not carried over.
 
 Bound on the card: 12 bytes per element (a, b read, h written) plus h0,
 over 3.35 TB/s.  The kernel rounds the product and the sum separately, as
@@ -25,11 +30,24 @@ from repro_torch.kernels.attention_common import on_cuda, stream
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = (("rglru_scan", (_P,) * 4 + (_I,) * 3 + (_P,)),)
+_SIGNATURES = (("rglru_scan", (_P,) * 4 + (_I,) * 4 + (_P,)),)
+CHANNELS_PER_BLOCK = 32   # kCh of csrc/recurrent.cu: 16, 32 or 64
+SCAN_THREADS = 128        # kScanThreads: all stage, kCh walk the chains
 
 
 def reset_launches() -> None:
     LAUNCHES["rglru_scan"] = 0
+
+
+def rglru_grid(B: int, W: int, channels: int = CHANNELS_PER_BLOCK) -> tuple:
+    """The kernel's grid: (channel blocks, B) blocks of SCAN_THREADS."""
+    return -(-W // channels), B
+
+
+def rglru_smem_bytes(channels: int = CHANNELS_PER_BLOCK) -> int:
+    """Dynamic shared memory of one block: a and b, four stages of 32 steps
+    x ``channels`` fp32 each (``scan_smem_bytes`` of recurrent.cu)."""
+    return 2 * 4 * 32 * channels * 4
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
@@ -66,6 +84,6 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     lib = build.bind("recurrent", _SIGNATURES)
     build.launch(lib, "rglru_scan", a.data_ptr(), b.data_ptr(),
                  None if h0 is None else h0.data_ptr(), out.data_ptr(), B, S,
-                 W, stream(a))
+                 W, CHANNELS_PER_BLOCK, stream(a))
     LAUNCHES["rglru_scan"] += 1
     return out

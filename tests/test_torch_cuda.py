@@ -564,21 +564,33 @@ def test_flash_kernels_refuse_an_unsupported_head_dim(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,W,with_h0", [(1, 128, 4096, True),
                                            (2, 37, 1000, False),
-                                           (3, 1, 77, True)])
-def test_rglru_kernel_matches_plain_exactly(dev, B, S, W, with_h0):
+                                           (3, 1, 77, True),
+                                           (1, 2, 4096, True),
+                                           (1, 16, 4096, True),
+                                           (1, 64, 4096, True),
+                                           (2, 128, 4096, True),
+                                           (1, 300, 1000, True)])
+def test_rglru_kernel_matches_plain_exactly(dev, B, S, W, with_h0,
+                                            monkeypatch):
     """Bit-identical to the plain version (products and sums rounded
-    separately): the main path's chunk (S 128, W 4096), S not a multiple
-    of the unroll, W not a multiple of the block, one step."""
+    separately) at every channels per block: the main path's chunks (S 2,
+    16, 64, 128; W 4096), B 2 with h0, S not a multiple of a stage, W not
+    a multiple of the channels per block or of 4 (4-byte copies), one
+    step; two calls bitwise equal."""
     rng = np.random.default_rng(B * 1000 + S)
     a = torch.from_numpy(rng.uniform(0.2, 0.999, (B, S, W)).astype(
         np.float32)).to(dev)
     b = torch.from_numpy(rng.normal(size=(B, S, W)).astype(np.float32)).to(dev)
     h0 = (torch.from_numpy(rng.normal(size=(B, W)).astype(np.float32)).to(dev)
           if with_h0 else None)
-    rglru_k.reset_launches()
-    got = rglru_k.rglru_scan(a, b, h0)
-    assert rglru_k.LAUNCHES["rglru_scan"] == 1
-    assert torch.equal(got, rglru_k.rglru_scan_plain(a, b, h0))
+    want = rglru_k.rglru_scan_plain(a, b, h0)
+    for channels in (16, 32, 64):
+        monkeypatch.setattr(rglru_k, "CHANNELS_PER_BLOCK", channels)
+        rglru_k.reset_launches()
+        got = rglru_k.rglru_scan(a, b, h0)
+        assert rglru_k.LAUNCHES["rglru_scan"] == 1
+        assert torch.equal(got, want), channels
+        assert torch.equal(rglru_k.rglru_scan(a, b, h0), got), channels
 
 
 def _mlstm_inputs(B, S, H, Dh, dtype, dev, seed, i_shift=0.0):
@@ -600,10 +612,15 @@ def _mlstm_inputs(B, S, H, Dh, dtype, dev, seed, i_shift=0.0):
     (1, 200, 2, 64, 0.0),         # a ragged last chunk
     (2, 37, 3, 48, 0.0),          # one short chunk, Dh not a multiple of 32
     (1, 300, 2, 32, -40.0),       # strongly negative input gate
+    (1, 128, 1, 512, 0.0),        # B*H = 1, one whole chunk
+    (1, 129, 2, 64, 0.0),         # one row past the chunk boundary
+    (2, 20, 1, 20, 0.0),          # Dh*2 bytes not a multiple of 16
 ])
 def test_mlstm_kernel_matches_plain(dev, dtype, B, S, H, Dh, i_shift):
     """The chunkwise kernel against the quadratic plain form: fp32 at
-    3e-4 (the reference's limit), bf16 at LOOSE."""
+    3e-4 (the reference's limit), bf16 at LOOSE; two calls bitwise equal;
+    bf16 gates read in their own type give bitwise the result of fp32
+    gates of the same values."""
     x = _mlstm_inputs(B, S, H, Dh, dtype, dev, S + Dh, i_shift)
     mlstm_k.reset_launches()
     got = mlstm_k.mlstm_chunkwise(*x)
@@ -614,6 +631,22 @@ def test_mlstm_kernel_matches_plain(dev, dtype, B, S, H, Dh, i_shift):
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
                                **(MLSTM_TOL if dtype == torch.float32
                                   else LOOSE))
+    assert torch.equal(mlstm_k.mlstm_chunkwise(*x), got)
+    gates = [gt.to(torch.bfloat16) for gt in x[3:]]
+    assert torch.equal(mlstm_k.mlstm_chunkwise(*x[:3], *gates),
+                       mlstm_k.mlstm_chunkwise(*x[:3],
+                                               *(gt.float() for gt in gates)))
+
+
+@pytest.mark.cuda
+def test_mlstm_smem_mirror_matches_kernel(dev):
+    """``mlstm_smem_bytes`` equals the kernel's own count, and fits the
+    card's 227 KB, at every Dh <= 512 and both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for Dh in range(1, mlstm_k.MAX_HEAD_DIM + 1):
+            want = mlstm_k.kernel_smem_bytes(Dh, dtype)
+            assert mlstm_k.mlstm_smem_bytes(Dh, dtype) == want
+            assert want <= mlstm_k.SMEM_MAX
 
 
 @pytest.mark.cuda
@@ -632,6 +665,11 @@ def test_recurrent_kernels_refuse_what_they_do_not_take(dev):
     x = _mlstm_inputs(1, 4, 1, 16, torch.float16, dev, 0)
     with pytest.raises(TypeError):
         mlstm_k.mlstm_chunkwise(*x)
+    x = _mlstm_inputs(1, 4, 1, 16, torch.float32, dev, 0)
+    with pytest.raises(TypeError):
+        mlstm_k.mlstm_chunkwise(*x[:3], x[3].half(), x[4].half())
+    with pytest.raises(TypeError):
+        mlstm_k.mlstm_chunkwise(*x[:3], x[3].bfloat16(), x[4])
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's token path spends its time, on one NVIDIA card.
 
-    python3 tools/torch_token_path_profile.py [--arch recurrentgemma-9b]
+    python3 tools/torch_token_path_profile.py [--arch recurrentgemma-9b |
+                                               --arch xlstm-350m] [--src DIR]
 
 1. Attention kernels alone (starcoder2-3b only): each of the four kernels
    at the token path's head shapes (Hq 24, Hkv 2, D 128, bf16, block 16,
@@ -23,6 +24,19 @@
    under ``torch.profiler``: host ms per tick, device busy ms per tick and
    the device time per tick by kernel.
 
+``--arch xlstm-350m`` profiles instead what ``chip_smoke.py`` phase 11
+times first: ``transformer.prefill`` of 4 prompts x 512 tokens (the
+mLSTM kernel once in each of its 21 mLSTM layers; the served drain never
+launches it): its wall time, then one more prefill under
+``torch.profiler`` with the device time per kernel and the port's
+kernels' device time and launches.
+
+``--src DIR`` profiles the package under ``DIR/src`` (another checkout,
+for example the parent commit unpacked with ``git archive``) in place of
+this checkout's: it builds that checkout's kernels into its own
+``_build/``, so two calls in one machine compare a change with its parent
+on one card.
+
 The random weights are drawn on the card from a seed, as ``chip_smoke.py``
 phases 7 and 10 draw them.  Prints the card's name
 and power limit and one JSON summary line.  Needs a card; exits non-zero
@@ -42,6 +56,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWEEP = (32, 128, 512, 1024)
 SLOTS, CAPACITY, CHUNK, BLOCK = 8, 2048, 128, 16
 REQUESTS, NEW, PROMPT, SEED = 16, 32, (33, 1000), 0
+PREFILL = (4, 512)                       # xlstm-350m: prompts x tokens
 HQ, HKV, D = 24, 2, 128
 M = -(-(4096 - 1) // BLOCK) + 1          # table columns at 8 x 257 blocks
 FLUSH_BYTES = 1 << 30                    # > 20x the H100's 50 MB L2
@@ -177,12 +192,15 @@ def device_ms(torch, prof) -> dict:
 
 def port_kernels(torch, prof) -> dict:
     """{kernel: (device ms, launches)} of the port's own CUDA kernels (the
-    ``csrc`` sources define them in an anonymous namespace; PyTorch's
-    kernels there name ``at::native``), by template instance."""
+    ``csrc`` sources define them in an anonymous namespace, a template
+    instance's name starting with its return type, a plain kernel's with
+    the namespace; PyTorch's kernels there name ``at::native``), by
+    instance."""
     out = {}
     for e in prof.key_averages():
         if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key.startswith("void (anonymous namespace)::")
+                and e.key.startswith(("void (anonymous namespace)::",
+                                      "(anonymous namespace)::"))
                 and "at::native" not in e.key):
             ms, n = out.get(e.key, (0.0, 0))
             out[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -212,17 +230,69 @@ def decode_window(torch, cfg, params, reqs, dev, ticks=16):
                                 for k, ms in device_ms(torch, prof).items()}
 
 
+def prefill_profile(torch, cfg, params, dev, card, src) -> int:
+    """xlstm-350m: ``transformer.prefill`` of PREFILL prompts, timed, then
+    once more under ``torch.profiler``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunOpts
+    opts = RunOpts(use_kernels=True)
+    B, S = PREFILL
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.long, device=dev)
+    TT.prefill(cfg, params, toks[:, :16], opts=opts)      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TT.prefill(cfg, params, toks, opts=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        TT.prefill(cfg, params, toks, opts=opts)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = device_ms(torch, prof)
+    if not kernels:
+        print("the profiler saw no device event", file=sys.stderr)
+        return 1
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    print(f"{cfg.name} prefill {B} x {S} tokens (package {src}): "
+          f"{wall * 1e3:.1f} ms; profiled {prof_wall * 1e3:.1f} ms, device "
+          f"busy {busy:.1f} ms ({100 * busy / (prof_wall * 1e3):.1f} %) on "
+          f"{card}", flush=True)
+    for name, ms in top:
+        print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
+    ours = port_kernels(torch, prof)
+    for name, (ms, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        print(f"port kernel over the prefill: {ms:9.2f} ms in {n} launches "
+              f"({ms * 1e3 / n:.2f} us each)  {name[:100]}", flush=True)
+    print(card, flush=True)
+    print(json.dumps({
+        "card": card, "arch": cfg.name, "src": src, "prefill_s": wall,
+        "profiled_prefill_s": prof_wall, "device_busy_ms": busy,
+        "device_top_ms": {name[:100]: ms for name, ms in top},
+        "port_kernels_ms_launches": {name[:100]: v for name, v in
+                                     ours.items()}}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2-3b",
-                    choices=("starcoder2-3b", "recurrentgemma-9b"))
+                    choices=("starcoder2-3b", "recurrentgemma-9b",
+                             "xlstm-350m"))
+    ap.add_argument("--src", default=ROOT,
+                    help="the checkout whose package is profiled")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_token_path_profile: needs an NVIDIA card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
     from repro_torch.config import get_arch
     from repro_torch.kernels import build
     from repro_torch.models import transformer as TT
@@ -239,6 +309,8 @@ def main(argv=None) -> int:
     cfg = get_arch(args.arch)
     params = TT.init_params(cfg, torch.Generator().manual_seed(SEED),
                             device=dev)
+    if args.arch == "xlstm-350m":
+        return prefill_profile(torch, cfg, params, dev, card, args.src)
     reqs = requests(Request, cfg.vocab_size, REQUESTS, NEW, PROMPT, SEED)
     serve(torch, cfg, params, reqs[:2], dev)                  # warm-up
     tracer = SpanTracer()
