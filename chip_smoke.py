@@ -11,14 +11,22 @@ wall seconds):
                ``recurrent.cu`` with nvcc for sm_90a, one nvcc per source,
                started together; print the build times, the card's name
                and power limit, and each decode, flash and recurrent
-               kernel instance's registers and spills from the
-               ``-Xptxas -v`` report.
+               kernel instance's registers and spills (the vision
+               kernels' too) from the ``-Xptxas -v`` report.
   2. kernels   hold each vision kernel against its plain PyTorch version on
                the card, at the main path's shapes and at edge shapes
-               (uint8 frames, box resampling, g=20 with block=8, a bf16
-               pool); time kernel, plain version and, where one PyTorch
+               (uint8 frames, box resampling, g=20 with block=8, the
+               tiers' model resolutions 48/32/16 under gate 32, a uint8
+               row of 60 bytes, bf16 pools, the 1x1 null refs, rows that
+               are not 16-byte units); ``ingest_frame`` also bitwise equal
+               to ``ingest_banded_plain``, the kernel's arithmetic band by
+               band.  Time kernel, plain version and, where one PyTorch
                call computes the same function, that call, each with a
-               cold L2 (inputs come from HBM, as the bound assumes).
+               cold L2 (inputs come from HBM, as the bound assumes).  Then
+               kernels 1-2's grid, cluster, block, shared memory and
+               registers with a bitwise repeat, their times at the frugal
+               tier (model 16 into a bf16 pool), and ingest at 2, 4 and 8
+               blocks a stream, each setting held against plain first.
   3. main path ``VisionServeEngine(use_kernels=True, slots=32,
                frame_res=256, input_res=192)`` with the motion gate on:
                16 outer + 16 inner dash-cam streams, 32 frames each,
@@ -140,6 +148,9 @@ REPLACES = {
     "block_sad": "src/repro/kernels/vision_ops.py:148",
 }
 SOURCE = "src/repro_torch/kernels/csrc/vision_ops.cu"
+TIER_RES = (48, 32, 16)               # tiers' model resolutions (gate 32)
+RANK_SWEEP = (2, 4, 8)                # ingest blocks (cluster ranks) a stream
+VISION_REGS = {}                      # (kernel, dtype): ptxas registers
 ATTN_REPLACES = {
     "paged_decode": "src/repro/kernels/paged_attention.py:49",
     "paged_flash": "src/repro/kernels/paged_attention.py:142",
@@ -274,24 +285,48 @@ def check_kernels(torch, vo, dev):
     refs = rand(S, g, g, 3)
     rows, errs = {}, {k: 0.0 for k in REPLACES}
 
-    # ingest_frame: main-path shape, then uint8 / box / g=20 edges
+    # ingest_frame: main-path shape, then uint8 / box / g=20 edges, the
+    # tiers' model resolutions under gate 32 (their gate rows are not
+    # among the model's), a uint8 row of 60 bytes (the kernel's scalar
+    # path); every case also bitwise equal to the banded model of the
+    # kernel's arithmetic and to a second call
     kw = dict(model_res=m, gate_res=g, block=BLOCK)
+
+    def ingest_case(f, r, exact, **kwargs):
+        got = vo.ingest_frame(f, r, **kwargs)
+        err = max_err(got, vo.ingest_frame_plain(f, r, **kwargs))
+        if exact:                       # nearest model/gate frames
+            max_err(got[:2], vo.ingest_frame_plain(f, r, **kwargs)[:2],
+                    exact=True)
+        if not all(map(torch.equal, got, vo.ingest_banded_plain(
+                f, r, **kwargs))):
+            fail(f"ingest_frame {tuple(f.shape)} {kwargs}: not bitwise "
+                 f"equal to ingest_banded_plain")
+        if not all(map(torch.equal, got, vo.ingest_frame(f, r, **kwargs))):
+            fail(f"ingest_frame {tuple(f.shape)} {kwargs}: two calls differ")
+        errs["ingest_frame"] = max(errs["ingest_frame"], err)
+
     for f, method in ((frames, "nearest"), (frames_u8, "nearest"),
                       (frames, "box"), (frames_u8, "box")):
-        errs["ingest_frame"] = max(errs["ingest_frame"], max_err(
-            vo.ingest_frame(f, refs, method=method, **kw),
-            vo.ingest_frame_plain(f, refs, method=method, **kw)))
-    for f in (frames, frames_u8):       # nearest model/gate frames are exact
-        a = vo.ingest_frame(f, refs, **kw)
-        b = vo.ingest_frame_plain(f, refs, **kw)
-        max_err(a[:2], b[:2], exact=True)
+        ingest_case(f, refs, method == "nearest", method=method, **kw)
     refs20 = rand(S, 20, 20, 3)
     small = rand(4, 64, 64, 3)
     for f, r, kw20 in ((frames, refs20, dict(model_res=m, gate_res=20)),
                        (small, refs20[:4], dict(model_res=48, gate_res=20))):
-        errs["ingest_frame"] = max(errs["ingest_frame"], max_err(
-            vo.ingest_frame(f, r, block=8, **kw20),
-            vo.ingest_frame_plain(f, r, block=8, **kw20)))
+        ingest_case(f, r, True, block=8, **kw20)
+    for res in TIER_RES:
+        ingest_case(frames, refs, True, model_res=res, gate_res=g,
+                    block=BLOCK)
+    narrow = rand(4, 20, 20, 3, dtype=torch.uint8)
+    for method in ("nearest", "box"):
+        ingest_case(narrow, refs20[:4, :10, :10].contiguous(),
+                    method == "nearest", model_res=16, gate_res=10, block=4,
+                    method=method)
+    print(f"ingest_frame: nearest frames bit-identical to plain, scores "
+          f"within TIGHT, all bitwise equal to ingest_banded_plain and to a "
+          f"second call, at S {S} 256 px fp32/uint8 nearest/box -> {m}/{g} "
+          f"and -> {m}/20, tiers {TIER_RES}/{g}, uint8 20 px -> 16/10",
+          flush=True)
 
     # downscale: gateless (-> model res) and gate (-> gate res) shapes
     for f in (frames, frames_u8):
@@ -308,17 +343,21 @@ def check_kernels(torch, vo, dev):
         errs["block_sad"] = max(errs["block_sad"], max_err(
             vo.block_sad(a, b, BLOCK), vo.block_sad_plain(a, b, BLOCK)))
 
-    # scatter_admit: f32 and bf16 pools, gated refs and the gateless (1x1)
+    # scatter_admit: f32 and bf16 pools, gated refs and the gateless (1x1),
+    # the frugal tier's rows, a row of 75 elements (not 16-byte units)
     admit = torch.rand(S, generator=rng, device=dev) < 0.5
     model, gate = rand(S, m, m, 3), rand(S, g, g, 3)
     null = torch.zeros(S, 1, 1, 3, device=dev)
     for pool in (torch.float32, torch.bfloat16):
-        batch = rand(S, m, m, 3).to(pool)
-        for r, gt in ((refs, gate), (null, null)):
-            max_err(vo.scatter_admit(batch, model, r, gt, admit),
-                    vo.scatter_admit_plain(batch, model, r, gt, admit),
-                    exact=True)
+        for res in (m, 16, 5):
+            batch, mod = rand(S, res, res, 3).to(pool), rand(S, res, res, 3)
+            for r, gt in ((refs, gate), (null, null)):
+                max_err(vo.scatter_admit(batch, mod, r, gt, admit),
+                        vo.scatter_admit_plain(batch, mod, r, gt, admit),
+                        exact=True)
     torch.cuda.synchronize()
+    print(f"scatter_admit: bit-identical to plain, fp32 and bf16 pools of "
+          f"{m}/16/5 px, refs {g} px and the 1x1 null refs", flush=True)
 
     # times at the main path's shapes (f32 frames, nearest, f32 pool).
     # Bytes: each input element the function needs read once, each output
@@ -375,7 +414,97 @@ def check_kernels(torch, vo, dev):
                                 torch.where(sel, gate, refs)))
     print(f"yardstick (cold L2): two torch.where for pool+refs "
           f"{where_ms:.4f} ms", flush=True)
+    vision_geometry(torch, vo, frames, refs, batch, model, gate, admit, kw)
+    # the frugal tier: model 16 under gate 32 into a bf16 pool
+    lo = 16
+    pool16, model16 = rand(S, lo, lo, 3).to(torch.bfloat16), rand(S, lo, lo, 3)
+    kw16 = dict(model_res=lo, gate_res=g, block=BLOCK)
+    for name, kern, plain, nbytes in (
+            ("ingest_frame", lambda: vo.ingest_frame(frames, refs, **kw16),
+             lambda: vo.ingest_frame_plain(frames, refs, **kw16),
+             S * pixels_read(H, H, (lo, g), "nearest") * pix * f4
+             + 2 * S * g * g * pix * f4 + S * lo * lo * pix * f4 + S * f4),
+            ("scatter_admit",
+             lambda: vo.scatter_admit(pool16, model16, refs, gate, admit),
+             lambda: vo.scatter_admit_plain(pool16, model16, refs, gate,
+                                            admit),
+             S * (lo * lo * pix * (4 + 2) + 2 * g * g * pix * f4) + S)):
+        print(f"kernel {name} frugal tier ({lo}/{g}, bf16 pool): cold L2: "
+              f"kernel {time_ms(kern):.4f} ms  plain {time_ms(plain):.4f} ms"
+              f"  bound {bound(nbytes, 0)[0] * 1e3:.2f} us "
+              f"({nbytes / 1e6:.3f} MB)", flush=True)
+    rank_sweep(vo, frames, refs, kw)
     return rows
+
+
+def vision_report(log: str) -> dict:
+    """{(kernel, dtype): (registers, spill bytes)} of the vision_ops.cu
+    kernels in an ``-Xptxas -v`` report."""
+    pat = (r"Compiling entry function '\S*?(ingest_kernel|scatter_rows_kernel"
+           r"|resample_kernel|sad_kernel)(?:I(h|f|13__nv_bfloat16)E)?")
+    names = {"h": "u8", "f": "f32", "13__nv_bfloat16": "bf16", None: "f32"}
+    return ptxas_entries(log, pat, lambda m: (m.group(1), names[m.group(2)]))
+
+
+def vision_geometry(torch, vo, frames, refs, batch, model, gate, admit, kw):
+    """Print kernels 1-2's launch at the main path's shapes (grid,
+    cluster, block, shared memory, registers) and fail unless two calls
+    are bitwise equal."""
+    S, H, W, C = frames.shape
+    p = vo.ingest_plan(S, H, W, C, kw["model_res"], kw["gate_res"],
+                       kw["block"], dtype=frames.dtype)
+    if p["smem"] != vo.ingest_smem_bytes(H, kw["model_res"], kw["gate_res"],
+                                         C, p["ranks"], p["rows"],
+                                         p["stages"], p["slot_bytes"],
+                                         "nearest"):
+        fail("ingest_plan's shared memory disagrees with the kernel's count")
+    if not all(map(torch.equal, vo.ingest_frame(frames, refs, **kw),
+                   vo.ingest_frame(frames, refs, **kw))):
+        fail("ingest_frame: two calls on the same inputs differ")
+    print(f"kernel ingest_frame {tuple(frames.shape)} fp32 -> "
+          f"{kw['model_res']}/{kw['gate_res']}: grid {p['grid']} = "
+          f"{p['blocks']} blocks of {p['threads']} threads in clusters of "
+          f"{p['cluster']}, model rows {p['model_rows'][0]} ... gate rows "
+          f"{p['gate_rows'][0]} ..., a ring of {p['stages']} stages x "
+          f"{p['rows']} rows x {p['slot_bytes']} B, {p['smem']} B dynamic "
+          f"shared memory, "
+          f"vector paths src {p['src_vec']} model {p['model_vec']} refs "
+          f"{p['refs_vec']}, {VISION_REGS.get(('ingest_kernel', 'f32'))} "
+          f"(registers, B spilled); two calls bitwise equal", flush=True)
+    q = vo.scatter_plan(S, batch[0].numel(), refs[0].numel(), batch.dtype)
+    if not all(map(torch.equal, vo.scatter_admit(batch, model, refs, gate,
+                                                 admit),
+                   vo.scatter_admit(batch, model, refs, gate, admit))):
+        fail("scatter_admit: two calls on the same inputs differ")
+    print(f"kernel scatter_admit {tuple(batch.shape)} fp32 pool: grid "
+          f"{q['grid']} = {q['blocks']} blocks of {q['threads']} threads, "
+          f"{q['batch_units']} 16-byte units a pool row, {q['refs_units']} a "
+          f"refs row, vector paths pool {q['batch_vec']} refs "
+          f"{q['refs_vec']}, "
+          f"{VISION_REGS.get(('scatter_rows_kernel', 'f32'))} (registers, B "
+          f"spilled); two calls bitwise equal", flush=True)
+
+
+def rank_sweep(vo, frames, refs, kw):
+    """Cold-L2 time of ingest_frame at each ranks per stream of
+    RANK_SWEEP, each setting first held against the plain version (nearest
+    frames bit-exact, the score within TIGHT); the default restored
+    after."""
+    want = vo.ingest_frame_plain(frames, refs, **kw)
+    default, cells = vo.INGEST_RANKS, []
+    try:
+        for ranks in RANK_SWEEP:
+            vo.INGEST_RANKS = ranks
+            got = vo.ingest_frame(frames, refs, **kw)
+            max_err(got[:2], want[:2], exact=True)
+            max_err(got[2], want[2])
+            ms = time_ms(lambda: vo.ingest_frame(frames, refs, **kw))
+            cells.append(f"{ranks}: {ms:.4f}")
+    finally:
+        vo.INGEST_RANKS = default
+    print(f"kernel ingest_frame {tuple(frames.shape)}: ranks per stream -> "
+          f"cold-L2 ms  " + "  ".join(cells) + f" (default {default}; each "
+          f"setting held against plain first)", flush=True)
 
 
 def feed(frame_loop, classes, per_class, frames):
@@ -505,23 +634,15 @@ def attn_work(torch, q, q_pos, kv_pos, Hkv, window=0, table_bytes=0):
     return nbytes, 4 * D * Hq * pairs, valid
 
 
-def ptxas_report(log: str, kernel: str = "decode") -> dict:
-    """{(dtype, source, D[, rows]): (registers, spill bytes)} of the
-    ``decode_kernel`` or ``flash_kernel`` instances in an ``-Xptxas -v``
-    report (the flash kernels' key ends with their rows per block)."""
+def ptxas_entries(log: str, pat: str, key_of) -> dict:
+    """{key_of(match): (registers, spill bytes)} of each kernel instance
+    whose entry line in an ``-Xptxas -v`` report matches ``pat``."""
     import re
-    srcs = {"decode": ("PagedKV", "ContigKV"),
-            "flash": ("PagedSrc", "ContigSrc")}[kernel]
-    pat = (rf"Compiling entry function '\S*{kernel}_kernelI"
-           rf"(13__nv_bfloat16|f)\S*?({srcs[0]}|{srcs[1]})\S*?Li(\d+)E"
-           + (r"Li(\d+)E" if kernel == "flash" else ""))
     out, key, spill = {}, None, None
     for line in log.splitlines():
         m = re.search(pat, line)
         if m:
-            key = ("bf16" if m.group(1) != "f" else "f32",
-                   "paged" if m.group(2) == srcs[0] else "contiguous",
-                   *map(int, m.groups()[2:]))
+            key = key_of(m)
             continue
         if key is None:
             continue
@@ -533,6 +654,21 @@ def ptxas_report(log: str, kernel: str = "decode") -> dict:
             out[key] = (int(m.group(1)), spill)
             key = None
     return out
+
+
+def ptxas_report(log: str, kernel: str = "decode") -> dict:
+    """{(dtype, source, D[, rows]): (registers, spill bytes)} of the
+    ``decode_kernel`` or ``flash_kernel`` instances in an ``-Xptxas -v``
+    report (the flash kernels' key ends with their rows per block)."""
+    srcs = {"decode": ("PagedKV", "ContigKV"),
+            "flash": ("PagedSrc", "ContigSrc")}[kernel]
+    pat = (rf"Compiling entry function '\S*{kernel}_kernelI"
+           rf"(13__nv_bfloat16|f)\S*?({srcs[0]}|{srcs[1]})\S*?Li(\d+)E"
+           + (r"Li(\d+)E" if kernel == "flash" else ""))
+    return ptxas_entries(log, pat, lambda m: (
+        "bf16" if m.group(1) != "f" else "f32",
+        "paged" if m.group(2) == srcs[0] else "contiguous",
+        *map(int, m.groups()[2:])))
 
 
 def decode_report(torch, name, c, kern, capacity, label):
@@ -835,28 +971,12 @@ def recurrent_report(log: str) -> dict:
     """{("rglru", channels) or ("mlstm", dtype, gate dtype): (registers,
     spill bytes)} of the recurrent.cu instances in an ``-Xptxas -v``
     report."""
-    import re
-    pats = (("rglru", r"Compiling entry function '\S*rglru_kernelILi(\d+)E"),
-            ("mlstm", r"Compiling entry function '\S*mlstm_kernelI"
-                      r"(13__nv_bfloat16|f)(13__nv_bfloat16|S1_|f)E"))
+    pat = (r"Compiling entry function '\S*(?:rglru_kernelILi(\d+)E|"
+           r"mlstm_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|S1_|f)E)")
     dt = lambda m: "f32" if m == "f" else "bf16"
-    out, key, spill = {}, None, None
-    for line in log.splitlines():
-        for kind, pat in pats:
-            m = re.search(pat, line)
-            if m:
-                key = (("rglru", int(m.group(1))) if kind == "rglru" else
-                       ("mlstm", dt(m.group(1)), dt(m.group(2))))
-        if key is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[key] = (int(m.group(1)), spill)
-            key = None
-    return out
+    return ptxas_entries(log, pat, lambda m: (
+        ("rglru", int(m.group(1))) if m.group(1) is not None else
+        ("mlstm", dt(m.group(2)), dt(m.group(3)))))
 
 
 def check_recurrent(torch, dev):
@@ -1393,6 +1513,13 @@ def main() -> int:
                 f" rows {key[3]}" if len(key) > 3 else "")
             print(f"{kernel} kernel {what}: {regs} registers, {spill} B "
                   f"spilled", flush=True)
+    log = built["vision_ops"][0].with_suffix(".log")
+    VISION_REGS.update(vision_report(log.read_text() if log.exists() else ""))
+    if ("ingest_kernel", "f32") not in VISION_REGS:
+        fail("no ingest kernel instance in the ptxas report")
+    for (kernel, dt), (regs, spill) in sorted(VISION_REGS.items()):
+        print(f"vision kernel {kernel} {dt}: {regs} registers, {spill} B "
+              f"spilled", flush=True)
     log = built["recurrent"][0].with_suffix(".log")
     REC_REGS.update(recurrent_report(log.read_text() if log.exists() else ""))
     if not REC_REGS:

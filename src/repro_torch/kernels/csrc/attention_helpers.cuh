@@ -1,12 +1,12 @@
 // What the attention kernels of attention.cu (flash) and
-// decode_attention.cu (decode), and the recurrent kernels of recurrent.cu,
-// share: constants, bf16 conversion, cp.async copies, ldmatrix and the
-// bf16 mma of the tensor cores.
+// decode_attention.cu (decode), the recurrent kernels of recurrent.cu and
+// the ingest kernels of vision_ops.cu share: constants, bf16 conversion,
+// cp.async copies, ldmatrix and the bf16 mma of the tensor cores.
 //
-// Included by the three sources, each built into its own library, so every
+// Included by the four sources, each built into its own library, so every
 // definition is internal (an anonymous namespace).  kernels/build.py keys
 // a library on the hash of its source AND of the csrc/ headers it
-// includes, so an edit here rebuilds all three.
+// includes, so an edit here rebuilds all four.
 
 #pragma once
 

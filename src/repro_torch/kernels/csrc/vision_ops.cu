@@ -6,29 +6,58 @@
 // frame is 786 KB, more than the 227 KB of shared memory a Hopper block can
 // have, so these kernels do not copy that layout:
 //
+//   * ingest    — one launch, grid (R, S), a thread block cluster of R
+//                 blocks per stream (R <= 8, the portable cluster size).
+//                 Block r owns model rows [r*m/R, (r+1)*m/R) and gate rows
+//                 [r*g/R, (r+1)*g/R).  It streams the source rows those
+//                 need through a ring of shared-memory slots, 16-byte
+//                 cp.async copies several rows ahead of the row it
+//                 resamples, and writes each model row as 16-byte vectors
+//                 gathered from shared memory through a column map that
+//                 the block computes once (all index arithmetic 32-bit).
+//                 Nearest takes source row i*H/m; box streams the bucket
+//                 [i*H/m, (i+1)*H/m) and accumulates each output element
+//                 in shared memory, in the same (row, column) order as the
+//                 one-pass sum.  The gate rows read their own source rows
+//                 (they need not be among the model's), write the gate
+//                 frame and the channel-mean |gate - ref| into rank 0's
+//                 shared memory (distributed shared memory); after a
+//                 cluster barrier rank 0 reduces the block x block tiles,
+//                 a warp a tile in a fixed order, and writes the max of
+//                 the tile means (partial edge tiles average their valid
+//                 pixels only: pad-and-mask).  No atomics, so two calls
+//                 give the same bits.  Rows whose length or start is not a
+//                 multiple of 16 bytes take a scalar path in the kernel.
 //   * resample  — a direct gather, one thread per output pixel and many
 //                 blocks per stream: nearest loads one source pixel, box
 //                 averages its bucket.  Normalization (x 1/255 for uint8)
 //                 happens on load, before resampling.  Nearest in fp32 is a
 //                 pure copy, so it is bit-identical to the plain gather.
-//   * gate      — one block per stream: resample to the (small) gate
-//                 resolution, write the gate frame, keep the channel-mean
-//                 |gate - ref| in shared memory, then the max over blocks of
-//                 the block mean (partial edge blocks average their valid
-//                 pixels only: pad-and-mask).
 //   * sad       — the score half alone, on frames already at gate size.
 //   * scatter   — a masked row select into NEW output tensors (copy
 //                 semantics, like the reference), casting the model frame
 //                 to the pool dtype (round-to-nearest-even for bf16).
+//                 Grid (X, S): the block reads admit[s] once and copies
+//                 its share of the row from one source, 16 bytes a thread
+//                 (fp32: a float4; bf16: eight values from two float4 of
+//                 the model, or eight of the kept row), four copies in
+//                 flight a thread, 32-bit offsets within the row.  Rows
+//                 that are not 16-byte multiples (the gateless path's
+//                 1x1x3 null references) are copied element by element.
 //
 // All four are bound by device-memory bytes, not arithmetic: each output
 // element costs a handful of flops.  Plain C entry points, loaded with
 // ctypes; each returns cudaGetLastError() so the wrapper can raise.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_helpers.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -140,32 +169,371 @@ __global__ void resample_kernel(const T* __restrict__ frames,
   }
 }
 
-// grid = (S,): stream s resamples to g x g, writes the gate frame and its
-// score against refs[s].
-template <typename T>
-__global__ void gate_kernel(const T* __restrict__ frames,
-                            const float* __restrict__ refs,
-                            float* __restrict__ gate,
-                            float* __restrict__ score, int H, int W, int C,
-                            int g, int block, int method, float scale) {
-  extern __shared__ float d[];                       // g * g
-  const int s = blockIdx.x;
-  const T* frame = frames + static_cast<long long>(s) * H * W * C;
-  const long long off = static_cast<long long>(s) * g * g * C;
-  for (int p = threadIdx.x; p < g * g; p += blockDim.x) {
-    float v[kMaxC];
-    resample_px(frame, H, W, C, g, p / g, p % g, method, scale, v);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c >= C) break;
-      gate[off + p * C + c] = v[c];
-      sum += fabsf(v[c] - refs[off + p * C + c]);
-    }
-    d[p] = sum / static_cast<float>(C);
+// ---------------------------------------------------------------------------
+// ingest: one launch, a cluster of R blocks per stream
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxRanks = 8;      // portable cluster size
+constexpr int kMaxStages = 8;     // ring stages (cp.async groups in flight)
+constexpr int kSrcVec = 1;        // flags (kernels/vision_ops.py ingest_plan)
+constexpr int kModelVec = 2;
+constexpr int kRefsVec = 4;
+
+// What the wrapper's ingest_plan chose, passed by value.
+struct IngestGeo {
+  int H, W, C, m, g, block;
+  int ranks, rows, stages, slot_bytes, flags, method;
+  float scale;
+};
+
+__host__ __device__ __forceinline__ int round16(int n) {
+  return (n + 15) & ~15;
+}
+
+// One job of a block's row loop: source row y, staged, adds to output row
+// i, whose bucket of source rows is [y0, y1).  Nearest: y0 = y, y1 = y + 1.
+struct __align__(16) IngestJob {
+  int y, i, y0, y1;
+};
+
+// Job k of a block: the model rows' source rows first, then the gate
+// rows'.  Nearest: one source row per output row.  Box: the source rows
+// [lo*H/res, hi*H/res) in order.  The kernel tabulates them once.
+__device__ __forceinline__ IngestJob ingest_job(int k, int n_model, int m_lo,
+                                                int g_lo, int m, int g,
+                                                int H, bool box) {
+  const bool gate = k >= n_model;
+  const int res = gate ? g : m;
+  const int lo = gate ? g_lo : m_lo;
+  const int kk = gate ? k - n_model : k;
+  IngestJob j;
+  if (!box) {
+    j.i = lo + kk;
+    j.y = j.i * H / res;
+    j.y0 = j.y;
+    j.y1 = j.y + 1;
+  } else {
+    j.y = lo * H / res + kk;
+    j.i = ((j.y + 1) * res - 1) / H;     // the bucket that holds row y
+    j.y0 = j.i * H / res;
+    j.y1 = (j.i + 1) * H / res;
   }
+  return j;
+}
+
+__host__ __device__ __forceinline__ int band_jobs(int lo, int hi, int res,
+                                                  int H, bool box) {
+  return box ? hi * H / res - lo * H / res : hi - lo;
+}
+
+// The most jobs any rank of the cluster has.
+__host__ __device__ __forceinline__ int ingest_jobs_max(const IngestGeo& G) {
+  const bool box = G.method != kNearest;
+  int most = 0;
+  for (int r = 0; r < G.ranks; ++r) {
+    const int n =
+        band_jobs(r * G.m / G.ranks, (r + 1) * G.m / G.ranks, G.m, G.H,
+                  box) +
+        band_jobs(r * G.g / G.ranks, (r + 1) * G.g / G.ranks, G.g, G.H, box);
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+// Byte offsets of the dynamic shared memory regions, each 16-byte aligned;
+// kernels/vision_ops.py ingest_plan mirrors this layout.
+struct IngestLayout {
+  int ring, dmap, refs, jobs, me0, me1, gx, acc, total;
+};
+
+__host__ __device__ __forceinline__ IngestLayout
+ingest_layout(const IngestGeo& G) {
+  const bool box = G.method != kNearest;
+  const int band = (G.g + G.ranks - 1) / G.ranks;   // most gate rows a block
+  IngestLayout L;
+  int p = 0;
+  L.ring = p;  p += G.stages * G.rows * G.slot_bytes;  // source rows
+  L.dmap = p;  p += round16(G.g * G.g * 4);         // |gate - ref| (rank 0)
+  L.refs = p;  p += round16(band * G.g * G.C * 4);  // this block's refs rows
+  L.jobs = p;  p += ingest_jobs_max(G) * 16;        // the job table
+  L.me0 = p;   p += round16(G.m * G.C * 4);         // element -> source offset
+  L.me1 = p;   p += box ? round16(G.m * G.C * 4) : 0;  // box: bucket end
+  L.gx = p;    p += round16((G.g + 1) * 4);         // gate pixel -> column
+  L.acc = p;   p += box ? round16((G.m + G.g) * G.C * 4) : 0;  // box sums
+  L.total = p;
+  return L;
+}
+
+// cp.async.wait_group takes an immediate: allow n groups still pending
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<kMaxStages - 1>(); break;
+  }
+}
+
+// One normalized source element.  __fmul_rn is never contracted into a
+// following add, so a box sum rounds as the plain model's mul-then-add.
+__device__ __forceinline__ float norm32(const float* row, int o, float) {
+  return row[o];
+}
+__device__ __forceinline__ float norm32(const uint8_t* row, int o,
+                                        float scale) {
+  return __fmul_rn(static_cast<float>(row[o]), scale);
+}
+
+// Model element e of the output row from the staged source row.  Nearest:
+// the value.  Box: adds this source row's part of e's bucket to acc[e];
+// returns the mean on the bucket's last row.
+template <typename T>
+__device__ __forceinline__ float model_elem(const T* row, const int* me0,
+                                            const int* me1, float* acc,
+                                            int e, int C, bool box,
+                                            const IngestJob& jb, float scale) {
+  if (!box) return norm32(row, me0[e], scale);
+  float a = jb.y == jb.y0 ? 0.f : acc[e];
+  int n = 0;
+  for (int o = me0[e]; o < me1[e]; o += C, ++n) a += norm32(row, o, scale);
+  if (jb.y != jb.y1 - 1) {
+    acc[e] = a;
+    return 0.f;
+  }
+  return a / static_cast<float>((jb.y1 - jb.y0) * n);
+}
+
+// The row loop does no integer division (each costs a chain of dependent
+// instructions, and the loop is a chain of dependent steps): the jobs and
+// the column maps are tabulated in parallel first, the ring's slots
+// advance by counters.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ingest_kernel(const T* __restrict__ frames, const float* __restrict__ refs,
+              float* __restrict__ model, float* __restrict__ gate,
+              float* __restrict__ score, IngestGeo G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = static_cast<int>(cluster.block_rank());
+  const int s = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int H = G.H, W = G.W, C = G.C, m = G.m, g = G.g;
+  const bool box = G.method != kNearest;
+  const int mC = m * C, gC = g * C, rowC = W * C;
+  const IngestLayout L = ingest_layout(G);
+  unsigned char* ring = smem + L.ring;
+  float* dmap = reinterpret_cast<float*>(smem + L.dmap);
+  float* refs_s = reinterpret_cast<float*>(smem + L.refs);
+  IngestJob* jobs = reinterpret_cast<IngestJob*>(smem + L.jobs);
+  int* me0 = reinterpret_cast<int*>(smem + L.me0);
+  int* me1 = reinterpret_cast<int*>(smem + L.me1);
+  int* gx = reinterpret_cast<int*>(smem + L.gx);
+  float* macc = reinterpret_cast<float*>(smem + L.acc);
+  float* gacc = macc + mC;
+
+  const int m_lo = r * m / G.ranks, m_hi = (r + 1) * m / G.ranks;
+  const int g_lo = r * g / G.ranks, g_hi = (r + 1) * g / G.ranks;
+  const int n_model = band_jobs(m_lo, m_hi, m, H, box);
+  const int n_jobs = n_model + band_jobs(g_lo, g_hi, g, H, box);
+  const T* frame = frames + static_cast<long long>(s) * H * rowC;
+
+  // this block's refs rows: the first cp.async group
+  {
+    const float* src = refs + (static_cast<long long>(s) * g + g_lo) * gC;
+    const int n = (g_hi - g_lo) * gC;
+    if (G.flags & kRefsVec)
+      for (int o = tid * 4; o < n; o += kThreads * 4)
+        cp_async16(refs_s + o, src + o, true);
+    else
+      for (int o = tid; o < n; o += kThreads) refs_s[o] = src[o];
+  }
+  // the job table and the column maps
+  for (int k = tid; k < n_jobs; k += kThreads)
+    jobs[k] = ingest_job(k, n_model, m_lo, g_lo, m, g, H, box);
+  for (int j = tid; j < m; j += kThreads) {
+    const int x0 = (j * W / m) * C, x1 = ((j + 1) * W / m) * C;
+    for (int c = 0; c < C; ++c) {
+      me0[j * C + c] = x0 + c;
+      if (box) me1[j * C + c] = x1 + c;
+    }
+  }
+  for (int j = tid; j <= g; j += kThreads) gx[j] = j * W / g;
+  // arrive now, wait before the first write to rank 0's map: every block
+  // of the cluster has started by then
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  bool started = false;
+  float* dmap0 = cluster.map_shared_rank(dmap, 0);
   __syncthreads();
-  max_block_mean(d, g, g, block, score + s);
+
+  // the ring: stages of G.rows source rows, one job each
+  const int row_bytes = rowC * static_cast<int>(sizeof(T));
+  const int stage_bytes = G.rows * G.slot_bytes;
+  auto stage = [&](int st, int slot) {
+    unsigned char* dst = ring + slot * stage_bytes;
+    for (int j = 0, k = st * G.rows; j < G.rows && k < n_jobs; ++j, ++k) {
+      const T* src = frame + jobs[k].y * rowC;
+      if (G.flags & kSrcVec) {
+        const unsigned char* b = reinterpret_cast<const unsigned char*>(src);
+        for (int o = tid * 16; o < row_bytes; o += kThreads * 16)
+          cp_async16(dst + o, b + o, true);
+      } else {
+        T* d = reinterpret_cast<T*>(dst);
+        for (int o = tid; o < rowC; o += kThreads) d[o] = src[o];
+      }
+      dst += G.slot_bytes;
+    }
+  };
+  const int n_stages = (n_jobs + G.rows - 1) / G.rows;
+  for (int st = 0; st < G.stages - 1; ++st) {
+    if (st < n_stages) stage(st, st);
+    cp_async_commit();
+  }
+
+  int rslot = 0, wslot = G.stages - 1;
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + G.stages - 1 < n_stages)  // into the slot stage st - 1 freed
+      stage(st + G.stages - 1, wslot);
+    cp_async_commit();
+    cp_async_wait_pending(G.stages - 1);          // stage st's rows landed
+    __syncthreads();
+    const unsigned char* rows = ring + rslot * stage_bytes;
+    for (int j = 0, k = st * G.rows; j < G.rows && k < n_jobs; ++j, ++k) {
+      const IngestJob jb = jobs[k];
+      const T* row = reinterpret_cast<const T*>(rows + j * G.slot_bytes);
+      const bool emit = !box || jb.y == jb.y1 - 1;
+      if (k < n_model) {
+        float* out = model + (static_cast<long long>(s) * m + jb.i) * mC;
+        if (G.flags & kModelVec) {
+          for (int q = tid; q < mC / 4; q += kThreads) {
+            const int e = q * 4;
+            float4 v;
+            if (!box) {                // four source offsets in one load
+              const int4 o = *reinterpret_cast<const int4*>(me0 + e);
+              v = make_float4(norm32(row, o.x, G.scale),
+                              norm32(row, o.y, G.scale),
+                              norm32(row, o.z, G.scale),
+                              norm32(row, o.w, G.scale));
+            } else {
+              v.x = model_elem(row, me0, me1, macc, e, C, box, jb, G.scale);
+              v.y = model_elem(row, me0, me1, macc, e + 1, C, box, jb,
+                               G.scale);
+              v.z = model_elem(row, me0, me1, macc, e + 2, C, box, jb,
+                               G.scale);
+              v.w = model_elem(row, me0, me1, macc, e + 3, C, box, jb,
+                               G.scale);
+            }
+            if (emit) *reinterpret_cast<float4*>(out + e) = v;
+          }
+        } else {
+          for (int e = tid; e < mC; e += kThreads) {
+            const float v = model_elem(row, me0, me1, macc, e, C, box, jb,
+                                       G.scale);
+            if (emit) out[e] = v;
+          }
+        }
+        continue;
+      }
+      if (!started) {
+        asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+        started = true;
+      }
+      float* out = gate + (static_cast<long long>(s) * g + jb.i) * gC;
+      const float* ref = refs_s + (jb.i - g_lo) * gC;
+      for (int p = tid; p < g; p += kThreads) {
+        float v[kMaxC];
+#pragma unroll
+        for (int c = 0; c < kMaxC; ++c) {
+          if (c >= C) break;
+          if (!box) {
+            v[c] = norm32(row, gx[p] * C + c, G.scale);
+            continue;
+          }
+          float a = jb.y == jb.y0 ? 0.f : gacc[p * C + c];
+          int n = 0;
+          for (int x = gx[p]; x < gx[p + 1]; ++x, ++n)
+            a += norm32(row, x * C + c, G.scale);
+          if (emit)
+            v[c] = a / static_cast<float>((jb.y1 - jb.y0) * n);
+          else
+            gacc[p * C + c] = a;
+        }
+        if (!emit) continue;
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < kMaxC; ++c) {
+          if (c >= C) break;
+          out[p * C + c] = v[c];
+          sum += fabsf(v[c] - ref[p * C + c]);
+        }
+        dmap0[jb.i * g + p] = sum / static_cast<float>(C);
+      }
+    }
+    __syncthreads();             // the slot is free for stage st + stages
+    wslot = rslot;
+    rslot = rslot + 1 == G.stages ? 0 : rslot + 1;
+  }
+  if (!started) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cp_async_wait<0>();
+  cluster.sync();                // every rank's map rows have landed
+  if (r != 0) return;
+
+  // rank 0: a warp a tile; lane l sums the tile's columns l, l + 32, ...
+  // top to bottom, then a fixed tree of shuffles adds the lanes
+  const int B = G.block;
+  const int lane = tid & 31, warp = tid >> 5;
+  float best = -INFINITY;
+  int t = 0;
+  for (int y0 = 0; y0 < g; y0 += B) {
+    const int hy = min(B, g - y0);
+    for (int x0 = 0; x0 < g; x0 += B, ++t) {
+      if ((t & (kThreads / 32 - 1)) != warp) continue;
+      const int hx = min(B, g - x0);
+      float sum = 0.f;
+      for (int xx = lane; xx < hx; xx += 32) {
+        const float* col = dmap + y0 * g + x0 + xx;
+#pragma unroll 8
+        for (int yy = 0; yy < hy; ++yy) sum += col[yy * g];
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_down_sync(kFull, sum, off);
+      if (lane == 0) best = fmaxf(best, sum / static_cast<float>(hy * hx));
+    }
+  }
+  best = block_max(best);
+  if (tid == 0) score[s] = best;
+}
+
+template <typename T>
+int launch_ingest(const void* frames, const void* refs, void* model,
+                  void* gate, void* score, int S, const IngestGeo& G,
+                  int smem, cudaStream_t st) {
+  auto kernel = ingest_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G.ranks, S, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G.ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(frames),
+                         static_cast<const float*>(refs),
+                         static_cast<float*>(model),
+                         static_cast<float*>(gate),
+                         static_cast<float*>(score), G);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // grid = (S,): score of frames[s] against refs[s], both (H, W, C) fp32.
@@ -196,24 +564,83 @@ __device__ __forceinline__ __nv_bfloat16 to_pool<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// batch_out = admit ? cast(model) : batch; refs_out = admit ? gate : refs.
-// Rows are flattened: nb / nr elements per stream row.
+// ---------------------------------------------------------------------------
+// scatter: grid (X, S), one source per block, 16 bytes a thread
+// ---------------------------------------------------------------------------
+
+constexpr int kBatchRowVec = 1;  // flags (vision_ops.py scatter_plan)
+constexpr int kRefsRowVec = 2;
+constexpr int kUnroll = 4;        // 16-byte copies in flight a thread
+
+// 16 bytes of the pool type from the fp32 model row: unit u of 4 (fp32)
+// or 8 (bf16, two float4 rounded to nearest even) elements
+__device__ __forceinline__ uint4 adopt16(const float* src, int u, float*) {
+  return reinterpret_cast<const uint4*>(src)[u];
+}
+__device__ __forceinline__ uint4 adopt16(const float* src, int u,
+                                         __nv_bfloat16*) {
+  const float4 a = reinterpret_cast<const float4*>(src)[2 * u];
+  const float4 b = reinterpret_cast<const float4*>(src)[2 * u + 1];
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+}
+
+// This block's share of one row of n elements: out = take ? cast(adopt) :
+// keep.  The row is split into gridDim.x contiguous chunks of 16-byte
+// units (of elements on the scalar path).
 template <typename TB>
-__global__ void scatter_kernel(const uint8_t* __restrict__ admit,
-                               const TB* __restrict__ batch,
-                               const float* __restrict__ model,
-                               const float* __restrict__ refs,
-                               const float* __restrict__ gate,
-                               TB* __restrict__ batch_out,
-                               float* __restrict__ refs_out, long long nb,
-                               long long nr, int S) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long start =
-      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  for (long long i = start; i < S * nb; i += stride)
-    batch_out[i] = admit[i / nb] ? to_pool<TB>(model[i]) : batch[i];
-  for (long long i = start; i < S * nr; i += stride)
-    refs_out[i] = admit[i / nr] ? gate[i] : refs[i];
+__device__ __forceinline__ void select_row(bool take, const TB* keep,
+                                           const float* adopt, TB* out,
+                                           int n, bool vec) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(TB));
+  const int units = vec ? n / kPer : n;
+  const int chunk = (units + gridDim.x - 1) / gridDim.x;
+  const int lo = min(static_cast<int>(blockIdx.x) * chunk, units);
+  const int hi = min(lo + chunk, units);
+  if (!vec) {
+    for (int e = lo + threadIdx.x; e < hi; e += kThreads)
+      out[e] = take ? to_pool<TB>(adopt[e]) : keep[e];
+    return;
+  }
+  const uint4* kept = reinterpret_cast<const uint4*>(keep);
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  for (int u0 = lo + threadIdx.x; u0 < hi; u0 += kUnroll * kThreads) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int u = u0 + k * kThreads;
+      if (u < hi) v[k] = take ? adopt16(adopt, u, out) : kept[u];
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int u = u0 + k * kThreads;
+      if (u < hi) dst[u] = v[k];
+    }
+  }
+}
+
+// batch_out = admit ? cast(model) : batch; refs_out = admit ? gate : refs.
+// nb / nr elements per stream row.
+template <typename TB>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_kernel(const uint8_t* __restrict__ admit,
+                    const TB* __restrict__ batch,
+                    const float* __restrict__ model,
+                    const float* __restrict__ refs,
+                    const float* __restrict__ gate,
+                    TB* __restrict__ batch_out, float* __restrict__ refs_out,
+                    int nb, int nr, int flags) {
+  __shared__ int take_s;
+  const int s = blockIdx.y;
+  if (threadIdx.x == 0) take_s = admit[s];
+  __syncthreads();
+  const bool take = take_s != 0;
+  const long long ob = static_cast<long long>(s) * nb;
+  const long long orr = static_cast<long long>(s) * nr;
+  select_row<TB>(take, batch + ob, model + ob, batch_out + ob, nb,
+                 flags & kBatchRowVec);
+  select_row<float>(take, refs + orr, gate + orr, refs_out + orr, nr,
+                    flags & kRefsRowVec);
 }
 
 int grid_for(long long n) {
@@ -223,6 +650,7 @@ int grid_for(long long n) {
 }
 
 }  // namespace
+
 
 extern "C" {
 
@@ -243,23 +671,30 @@ int vo_downscale(const void* frames, void* out, int S, int H, int W, int C,
 
 int vo_ingest(const void* frames, const void* refs, void* model, void* gate,
               void* score, int S, int H, int W, int C, int m, int g,
-              int block, int is_u8, int method, float scale, void* stream) {
-  const int err = vo_downscale(frames, model, S, H, W, C, m, is_u8, method,
-                               scale, stream);
-  if (err != 0) return err;
+              int block, int is_u8, int method, float scale, int ranks,
+              int rows, int stages, int slot_bytes, int flags, int smem,
+              void* stream) {
+  const IngestGeo G{H, W, C, m, g, block, ranks, rows, stages, slot_bytes,
+                    flags, method, scale};
+  if (ranks < 1 || ranks > kMaxRanks || rows < 1 || stages < 2 ||
+      stages > kMaxStages ||
+      S < 1 || S > 65535 || C < 1 || C > kMaxC || block < 1 ||
+      ingest_layout(G).total > smem)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t shmem = sizeof(float) * g * g;
   if (is_u8)
-    gate_kernel<uint8_t><<<S, kThreads, shmem, st>>>(
-        static_cast<const uint8_t*>(frames), static_cast<const float*>(refs),
-        static_cast<float*>(gate), static_cast<float*>(score), H, W, C, g,
-        block, method, scale);
-  else
-    gate_kernel<float><<<S, kThreads, shmem, st>>>(
-        static_cast<const float*>(frames), static_cast<const float*>(refs),
-        static_cast<float*>(gate), static_cast<float*>(score), H, W, C, g,
-        block, method, scale);
-  return static_cast<int>(cudaGetLastError());
+    return launch_ingest<uint8_t>(frames, refs, model, gate, score, S, G,
+                                  smem, st);
+  return launch_ingest<float>(frames, refs, model, gate, score, S, G, smem,
+                              st);
+}
+
+// the dynamic shared memory vo_ingest needs (ingest_plan's mirror)
+int vo_ingest_smem(int H, int m, int g, int C, int ranks, int rows,
+                   int stages, int slot_bytes, int method) {
+  const IngestGeo G{H, 0, C, m, g, 1, ranks, rows, stages, slot_bytes, 0,
+                    method, 1.f};
+  return ingest_layout(G).total;
 }
 
 int vo_block_sad(const void* refs, const void* frames, void* score, int S,
@@ -273,24 +708,26 @@ int vo_block_sad(const void* refs, const void* frames, void* score, int S,
 
 int vo_scatter_admit(const void* admit, const void* batch, const void* model,
                      const void* refs, const void* gate, void* batch_out,
-                     void* refs_out, long long nb, long long nr, int S,
-                     int batch_bf16, void* stream) {
+                     void* refs_out, int nb, int nr, int S, int batch_bf16,
+                     int blocks_x, int flags, void* stream) {
+  if (blocks_x < 1 || S < 1 || S > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = grid_for(S * (nb > nr ? nb : nr));
+  const dim3 grid(blocks_x, S);
   const uint8_t* a = static_cast<const uint8_t*>(admit);
   if (batch_bf16)
-    scatter_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+    scatter_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         a, static_cast<const __nv_bfloat16*>(batch),
         static_cast<const float*>(model), static_cast<const float*>(refs),
         static_cast<const float*>(gate),
         static_cast<__nv_bfloat16*>(batch_out), static_cast<float*>(refs_out),
-        nb, nr, S);
+        nb, nr, flags);
   else
-    scatter_kernel<float><<<grid, kThreads, 0, st>>>(
+    scatter_rows_kernel<float><<<grid, kThreads, 0, st>>>(
         a, static_cast<const float*>(batch), static_cast<const float*>(model),
         static_cast<const float*>(refs), static_cast<const float*>(gate),
         static_cast<float*>(batch_out), static_cast<float*>(refs_out), nb, nr,
-        S);
+        flags);
   return static_cast<int>(cudaGetLastError());
 }
 

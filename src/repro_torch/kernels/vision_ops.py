@@ -30,28 +30,37 @@ resample needs: for nearest only the sampled rows x columns (the union over
 the model and gate outputs for ingest), for box the whole H*W frame.
 
   ingest_frame   S*P*C*in_bytes + 2*S*g*g*C*4 + S*m*m*C*4 + 4*S bytes.
-                 Design: one thread per model-resolution output pixel over
-                 many blocks per stream (the frame does not fit in a
-                 block's shared memory, so the TPU's whole-frame-in-VMEM
-                 layout is not copied), plus one block per stream for the
-                 small gate frame whose |gate-ref| map stays in shared
-                 memory for the block reduction — the gate frame is never
-                 read back from device memory.
+                 Design: one launch, grid (R, S), a thread block cluster of
+                 R blocks per stream (:func:`ingest_plan`).  Block r owns a
+                 band of model rows and a band of gate rows, streams the
+                 source rows they need through a ring of shared-memory
+                 slots with 16-byte ``cp.async`` copies, and writes model
+                 rows as 16-byte vectors.  Each block stores its rows of
+                 the |gate-ref| map into rank 0's shared memory; rank 0
+                 reduces the tiles after a cluster barrier.  The frame does
+                 not fit in a block's shared memory, so the TPU's
+                 whole-frame-in-VMEM layout is not copied; the gate frame is
+                 never read back from device memory.
+                 :func:`ingest_banded_plain` is that arithmetic in plain
+                 PyTorch, band by band.
   scatter_admit  S*(m*m*C*(4 + pool_bytes) + 2*g*g*C*4) + S bytes: each
-                 row reads only the input it selects.  Design: one flat
-                 grid-stride pass, each element a select.
+                 row reads only the input it selects.  Design: grid (X, S)
+                 (:func:`scatter_plan`); a block reads ``admit[s]`` once and
+                 copies its share of the row from that one source, 16 bytes
+                 a thread; rows that are not 16-byte multiples copy element
+                 by element.
   downscale      S*P*C*in_bytes + S*res*res*C*4 bytes.
   block_sad      2*S*H*W*C*4 + 4*S bytes; one block per stream, the
                  difference map in shared memory.
 
-These are first, simple kernels: measured times beside these bounds are in
-``PERF.md``.
+``downscale`` and ``block_sad`` are first, simple kernels.  Measured times
+beside these bounds are in ``PERF.md``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +69,22 @@ METHODS = ("nearest", "box")
 _METHOD_CODE = {"nearest": 0, "box": 1}          # csrc/vision_ops.cu kNearest
 MAX_CHANNELS = 4                                  # csrc kMaxC
 SHARED_BYTES = 48 * 1024       # static-launch shared memory per block
+# dynamic shared memory a block may take on the H100 (227 KB), less room
+# for the static shared memory beside it
+SMEM_MAX = 227 * 1024 - 1024
+THREADS = 256                  # csrc kThreads
+MAX_RANKS = 8                  # csrc kMaxRanks: the portable cluster size
+INGEST_RANKS = 8               # ingest blocks (cluster ranks) per stream
+MAX_STAGES = 8                 # csrc kMaxStages: ring stages per block
+ROWS_PER_STAGE = 8             # source rows a ring stage holds, at most
+RING_BYTES = 96 * 1024         # the ring's share of a block's shared memory
+SCATTER_UNROLL = 4             # csrc kUnroll: 16-byte copies a thread
+SMS = 132                      # H100 SXM streaming multiprocessors
+# vector-path flags (csrc kSrcVec, kModelVec, kRefsVec; kBatchRowVec,
+# kRefsRowVec)
+_SRC_VEC, _MODEL_VEC, _REFS_VEC = 1, 2, 4
+_BATCH_ROW_VEC, _REFS_ROW_VEC = 1, 2
+_INT_MAX = 2 ** 31 - 1
 # the uint8 normalization factor, rounded to fp32 once so the plain version
 # and the kernel multiply by the same float
 U8_SCALE = float(np.float32(1.0 / 255.0))
@@ -74,13 +99,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vo_downscale": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "vo_ingest": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _F, _P),
+                  _F, _I, _I, _I, _I, _I, _I, _P),
+    "vo_ingest_smem": (_I, _I, _I, _I, _I, _I, _I, _I, _I),
     "vo_block_sad": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "vo_scatter_admit": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P),
+    "vo_scatter_admit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P),
 }
 
 
@@ -154,6 +181,110 @@ def _check_shared(h: int, w: int, block: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# launch geometry: host mirrors of what csrc/vision_ops.cu computes
+# ---------------------------------------------------------------------------
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _bands(n: int, ranks: int) -> List[Tuple[int, int]]:
+    """Rows [r*n/R, (r+1)*n/R) of each rank r, as the kernel splits them."""
+    return [(r * n // ranks, (r + 1) * n // ranks) for r in range(ranks)]
+
+
+def ingest_plan(S: int, H: int, W: int, C: int, m: int, g: int, block: int,
+                *, method: str = "nearest", dtype=torch.float32,
+                ranks: int = None) -> dict:
+    """The ``ingest_frame`` launch: grid (R, S) in clusters of (R, 1, 1),
+    ``THREADS`` a block; the model and gate rows each rank owns and the
+    most source rows a rank streams (``jobs_max``); the ring (``stages``
+    stages of ``rows`` slots of ``slot_bytes``, one source row a slot:
+    a block waits once a stage, not once a row); the dynamic shared
+    memory (csrc ``ingest_layout``: ring, |gate-ref| map, the block's refs
+    rows, the job table, the column maps, box sums); and the vector-path
+    flags that row widths allow (the wrapper also needs 16-byte aligned
+    base pointers).  Raises where a block's shared memory or 32-bit
+    indexing would not hold the shapes."""
+    R = INGEST_RANKS if ranks is None else ranks
+    if not 1 <= R <= MAX_RANKS:
+        raise ValueError(f"ranks must be in 1..{MAX_RANKS}, got {R}")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    if S > 65535:
+        raise ValueError(f"at most 65535 streams a launch, got {S}")
+    if max(H * W * C, (max(m, g) + 1) * max(H, W)) > _INT_MAX:
+        raise ValueError(f"frames ({H}, {W}, {C}) at resolutions {m}/{g} "
+                         f"overflow the kernel's 32-bit indexing")
+    item = 1 if dtype == torch.uint8 else 4
+    row = W * C * item
+    slot = _r16(row)
+    rows = max(1, min(ROWS_PER_STAGE, RING_BYTES // (2 * slot)))
+    stages = min(MAX_STAGES, max(2, RING_BYTES // (rows * slot)))
+    box = method != "nearest"
+    band = -(-g // R)
+    model_rows, gate_rows = _bands(m, R), _bands(g, R)
+
+    def jobs(lo, hi, res):          # source rows a band streams
+        return hi * H // res - lo * H // res if box else hi - lo
+    jobs_max = max(jobs(*mr, m) + jobs(*gr, g)
+                   for mr, gr in zip(model_rows, gate_rows))
+    smem = (stages * rows * slot + _r16(g * g * 4) + _r16(band * g * C * 4)
+            + 16 * jobs_max + _r16(m * C * 4) * (2 if box else 1)
+            + _r16((g + 1) * 4) + (_r16((m + g) * C * 4) if box else 0))
+    if smem > SMEM_MAX:
+        raise ValueError(f"ingest at ({H}, {W}, {C}) -> {m}/{g} needs {smem} "
+                         f"bytes of shared memory a block, over {SMEM_MAX}")
+    src_vec, model_vec, refs_vec = (row % 16 == 0, (m * C) % 4 == 0,
+                                    (g * C) % 4 == 0)
+    return dict(
+        ranks=R, cluster=(R, 1, 1), grid=(R, S), blocks=R * S,
+        threads=THREADS, model_rows=model_rows, gate_rows=gate_rows,
+        jobs_max=jobs_max, rows=rows, stages=stages, slot_bytes=slot, smem=smem, src_vec=src_vec,
+        model_vec=model_vec, refs_vec=refs_vec,
+        flags=(_SRC_VEC * src_vec) | (_MODEL_VEC * model_vec)
+        | (_REFS_VEC * refs_vec))
+
+
+def _chunks(units: int, parts: int) -> List[Tuple[int, int]]:
+    """Block x's share [lo, hi) of a row of ``units``, as the kernel
+    splits it: ``parts`` contiguous chunks of ceil(units / parts)."""
+    chunk = -(-units // parts)
+    out = []
+    for x in range(parts):
+        lo = min(x * chunk, units)
+        out.append((lo, min(lo + chunk, units)))
+    return out
+
+
+def scatter_plan(S: int, nb: int, nr: int, pool_dtype) -> dict:
+    """The ``scatter_admit`` launch: grid (X, S), ``THREADS`` a block.  A
+    row of the pool copies in 16-byte units (4 fp32 or 8 bf16 elements)
+    when its length is a multiple of the unit, else element by element;
+    the references likewise (4 fp32).  X gives each thread at most
+    ``SCATTER_UNROLL`` units of the pool row, all in flight at once."""
+    if S > 65535 or max(nb, nr) > _INT_MAX // 4:
+        raise ValueError(f"scatter rows of {nb} / {nr} elements x {S} "
+                         f"overflow the kernel's grid or 32-bit offsets")
+    per = 8 if pool_dtype == torch.bfloat16 else 4
+    batch_vec, refs_vec = nb % per == 0, nr % 4 == 0
+    units_b = nb // per if batch_vec else nb
+    units_r = nr // 4 if refs_vec else nr
+    X = max(1, -(-units_b // (SCATTER_UNROLL * THREADS)))
+    return dict(grid=(X, S), blocks=X * S, threads=THREADS,
+                batch_vec=batch_vec, refs_vec=refs_vec, batch_units=units_b,
+                refs_units=units_r, batch_per_unit=per if batch_vec else 1,
+                refs_per_unit=4 if refs_vec else 1,
+                flags=(_BATCH_ROW_VEC * batch_vec)
+                | (_REFS_ROW_VEC * refs_vec))
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU path; the card's reference in chip_smoke.py)
 # ---------------------------------------------------------------------------
 
@@ -217,6 +348,107 @@ def ingest_frame_plain(frames: torch.Tensor, refs: torch.Tensor, *,
     return model, gate, block_sad_plain(refs, gate, block)
 
 
+def _band_rows(x: torch.Tensor, lo: int, hi: int, res: int,
+               method: str) -> torch.Tensor:
+    """Output rows [lo, hi) of x (S, H, W, C, fp32) resampled to res, in
+    the kernel's arithmetic: nearest gathers; box adds each bucket's
+    elements one at a time in (row, column) order, then divides by the
+    bucket's size."""
+    S, H, W, C = x.shape
+    xs = torch.arange(res, device=x.device) * W // res
+    if method == "nearest":
+        ys = torch.arange(lo, hi, device=x.device) * H // res
+        return x[:, ys][:, :, xs]
+    wid = (torch.arange(1, res + 1, device=x.device) * W // res) - xs
+    rows = []
+    for i in range(lo, hi):
+        y0, y1 = i * H // res, (i + 1) * H // res
+        acc = x.new_zeros((S, res, C))
+        for y in range(y0, y1):
+            for k in range(int(wid.max())):
+                col = (xs + k).clamp(max=W - 1)
+                acc = torch.where((k < wid)[None, :, None],
+                                  acc + x[:, y, col], acc)
+        rows.append(acc / ((y1 - y0) * wid).to(torch.float32)[None, :, None])
+    return torch.stack(rows, dim=1) if rows else x.new_empty((S, 0, res, C))
+
+
+def _tile_max(d: torch.Tensor, block: int) -> torch.Tensor:
+    """Rank 0's reduction of the (S, g, g) map: per tile, lane l of a warp
+    sums the tile's columns l, l+32, ... top to bottom, a fixed tree of
+    shuffles adds the 32 lanes, the sum is divided by the tile's valid
+    pixels; the max over tiles.  (S,) fp32."""
+    S, g, _ = d.shape
+    best = d.new_full((S,), float("-inf"))
+    for y0 in range(0, g, block):
+        for x0 in range(0, g, block):
+            v = d[:, y0:y0 + block, x0:x0 + block]
+            hy, hx = v.shape[1:]
+            v = torch.nn.functional.pad(v, (0, -(-hx // 32) * 32 - hx))
+            lanes = d.new_zeros((S, 32))
+            for j in range(v.shape[2] // 32):
+                for yy in range(hy):
+                    lanes = lanes + v[:, yy, 32 * j:32 * (j + 1)]
+            for off in (16, 8, 4, 2, 1):
+                lanes = lanes[:, :off] + lanes[:, off:2 * off]
+            best = torch.maximum(best, lanes[:, 0] / torch.full_like(
+                best, float(hy * hx)))
+    return best
+
+
+def ingest_banded_plain(frames: torch.Tensor, refs: torch.Tensor, *,
+                        model_res: int, gate_res: int, block: int = 8,
+                        method: str = "nearest", ranks: int = None):
+    """``ingest_frame``'s kernel arithmetic in plain PyTorch, band by band
+    as :func:`ingest_plan` splits the rows over a cluster: each rank's
+    model and gate rows, its rows of the channel-mean |gate - ref| map,
+    then rank 0's tile reduction (:func:`_tile_max`).  Nearest frames
+    equal :func:`ingest_frame_plain`'s bitwise; box frames and the score
+    sum in the kernel's order instead of the einsum's.  Every division is
+    by a tensor: PyTorch divides a CUDA tensor by a Python number as a
+    product with its reciprocal, which rounds differently."""
+    S, H, W, C = frames.shape
+    m, g = model_res, gate_res
+    plan = ingest_plan(S, H, W, C, m, g, block, method=method,
+                       dtype=frames.dtype, ranks=ranks)
+    x = normalize_plain(frames)
+    model = x.new_empty((S, m, m, C))
+    gate = x.new_empty((S, g, g, C))
+    d = x.new_empty((S, g, g))
+    for (m_lo, m_hi), (g_lo, g_hi) in zip(plan["model_rows"],
+                                          plan["gate_rows"]):
+        model[:, m_lo:m_hi] = _band_rows(x, m_lo, m_hi, m, method)
+        band = _band_rows(x, g_lo, g_hi, g, method)
+        gate[:, g_lo:g_hi] = band
+        diff = x.new_zeros((S, g_hi - g_lo, g))
+        for c in range(C):
+            diff = diff + (band[..., c] - refs[:, g_lo:g_hi, :, c]).abs()
+        d[:, g_lo:g_hi] = diff / torch.full_like(diff, float(C))
+    return model, gate, _tile_max(d, block)
+
+
+def scatter_banded_plain(batch, model, refs, gate, admit):
+    """``scatter_admit``'s kernel decomposition in plain PyTorch: every
+    (block, stream) of :func:`scatter_plan`'s grid copies its chunk of the
+    row, in 16-byte units or element by element, from the one source its
+    stream's admit bit selects.  Returns new tensors (batch', refs')."""
+    S = batch.shape[0]
+    plan = scatter_plan(S, batch[0].numel(), refs[0].numel(), batch.dtype)
+    X = plan["grid"][0]
+    outs = (torch.empty_like(batch), torch.empty_like(refs))
+    rows = ((batch, model, outs[0], plan["batch_units"],
+             plan["batch_per_unit"]),
+            (refs, gate, outs[1], plan["refs_units"], plan["refs_per_unit"]))
+    for s in range(S):
+        take = bool(admit[s])
+        for keep, adopt, out, units, per in rows:
+            src = (adopt if take else keep)[s].reshape(-1)
+            dst = out[s].view(-1)
+            for lo, hi in _chunks(units, X):
+                dst[lo * per:hi * per] = src[lo * per:hi * per].to(out.dtype)
+    return outs
+
+
 def scatter_admit_plain(batch, model, refs, gate, admit):
     """Masked row select into new tensors: (batch', refs')."""
     m = admit.reshape(-1, 1, 1, 1)
@@ -245,19 +477,37 @@ def ingest_frame(frames: torch.Tensor, refs: torch.Tensor, *, model_res: int,
         return ingest_frame_plain(frames, refs, model_res=model_res,
                                   gate_res=gate_res, block=block,
                                   method=method)
-    _check_shared(gate_res, gate_res, block)
+    plan = ingest_plan(S, H, W, C, model_res, gate_res, block,
+                       method=method, dtype=frames.dtype)
     opts = dict(dtype=torch.float32, device=frames.device)
     model = torch.empty((S, model_res, model_res, C), **opts)
     gate = torch.empty((S, gate_res, gate_res, C), **opts)
     score = torch.empty((S,), **opts)
+    flags = plan["flags"]
+    if not _aligned(frames):
+        flags &= ~_SRC_VEC
+    if not _aligned(refs):
+        flags &= ~_REFS_VEC
     is_u8 = frames.dtype == torch.uint8
     _launch("vo_ingest", frames.data_ptr(), refs.data_ptr(),
             model.data_ptr(), gate.data_ptr(), score.data_ptr(),
             S, H, W, C, model_res, gate_res, block, int(is_u8),
             _METHOD_CODE[method], U8_SCALE if is_u8 else 1.0,
-            _stream(frames))
+            plan["ranks"], plan["rows"], plan["stages"], plan["slot_bytes"],
+            flags, plan["smem"], _stream(frames))
     LAUNCHES["ingest_frame"] += 1
     return model, gate, score
+
+
+def ingest_smem_bytes(H: int, model_res: int, gate_res: int, C: int,
+                      ranks: int, rows: int, stages: int, slot_bytes: int,
+                      method: str) -> int:
+    """The kernel's own count of the dynamic shared memory ``ingest_frame``
+    launches with (csrc ``ingest_layout``); needs the built library, so a
+    card test can hold :func:`ingest_plan` against it."""
+    return int(_lib().vo_ingest_smem(H, model_res, gate_res, C, ranks, rows,
+                                     stages, slot_bytes,
+                                     _METHOD_CODE[method]))
 
 
 def downscale(frames: torch.Tensor, res: int, *,
@@ -317,11 +567,18 @@ def scatter_admit(batch: torch.Tensor, model: torch.Tensor,
     if not _on_cuda(batch, model, refs, gate, admit):
         return scatter_admit_plain(batch, model, refs, gate, admit)
     S = batch.shape[0]
+    plan = scatter_plan(S, batch[0].numel(), refs[0].numel(), batch.dtype)
     batch_out, refs_out = torch.empty_like(batch), torch.empty_like(refs)
+    flags = plan["flags"]
+    if not _aligned(batch, model):
+        flags &= ~_BATCH_ROW_VEC
+    if not _aligned(refs, gate):
+        flags &= ~_REFS_ROW_VEC
     _launch("vo_scatter_admit", admit.data_ptr(), batch.data_ptr(),
             model.data_ptr(), refs.data_ptr(), gate.data_ptr(),
             batch_out.data_ptr(), refs_out.data_ptr(),
             batch[0].numel(), refs[0].numel(), S,
-            int(batch.dtype == torch.bfloat16), _stream(batch))
+            int(batch.dtype == torch.bfloat16), plan["grid"][0], flags,
+            _stream(batch))
     LAUNCHES["scatter_admit"] += 1
     return batch_out, refs_out

@@ -109,6 +109,108 @@ def test_block_sad_and_scatter_match_plain(dev):
             _close(g, w, exact=True)
 
 
+def _off16(x):
+    """x's values in a tensor that starts 4 bytes past a 16-byte boundary
+    (the kernels' scalar paths)."""
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])
+    return flat[1:].view(x.shape)
+
+
+def _ingest_agrees(frames, refs, **kw):
+    """The kernel against plain (nearest frames bit-exact, the rest TIGHT),
+    and bitwise against ingest_banded_plain and a second call."""
+    got = tvo.ingest_frame(frames, refs, **kw)
+    want = tvo.ingest_frame_plain(frames, refs, **kw)
+    nearest = kw.get("method", "nearest") == "nearest"
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, exact=nearest and i < 2)
+    again = tvo.ingest_frame(frames, refs, **kw)
+    for a, b, c in zip(got, tvo.ingest_banded_plain(frames, refs, **kw),
+                       again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [48, 32, 16])
+def test_ingest_kernel_at_tier_shapes(dev, res):
+    """One launch at the tiers' model resolutions under gate 32, whose gate
+    source rows are not all among the model's."""
+    frames = _rand((4, 256, 256, 3), seed=21).to(dev)
+    refs = _rand((4, 32, 32, 3), seed=22).to(dev)
+    _ingest_agrees(frames, refs, model_res=res, gate_res=32, block=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "box"])
+def test_ingest_kernel_scalar_paths(dev, method):
+    """Rows that are not 16-byte multiples (uint8 rows of 60 bytes, model
+    rows of 15*3 floats, refs rows of 13*3) and frames or refs that start
+    off a 16-byte boundary take the kernel's scalar paths."""
+    frames = _rand((3, 20, 20, 3), np.uint8, seed=23).to(dev)
+    refs = _rand((3, 13, 13, 3), seed=24).to(dev)
+    _ingest_agrees(frames, refs, model_res=15, gate_res=13, block=4,
+                   method=method)
+    frames = _off16(_rand((2, 64, 64, 3), seed=25).to(dev))
+    refs = _off16(_rand((2, 20, 20, 3), seed=26).to(dev))
+    _ingest_agrees(frames, refs, model_res=48, gate_res=20, block=8,
+                   method=method)
+
+
+@pytest.mark.cuda
+def test_ingest_kernel_at_every_rank_count(dev, monkeypatch):
+    """1 to 8 blocks a stream (cluster sizes) give the same frames and the
+    same score bits: each tile is reduced whole by rank 0."""
+    frames = _rand((4, 96, 96, 3), seed=27).to(dev)
+    refs = _rand((4, 20, 20, 3), seed=28).to(dev)
+    kw = dict(model_res=72, gate_res=20, block=8)
+    first = None
+    for ranks in range(1, tvo.MAX_RANKS + 1):
+        monkeypatch.setattr(tvo, "INGEST_RANKS", ranks)
+        _ingest_agrees(frames, refs, **kw)
+        got = tvo.ingest_frame(frames, refs, **kw)
+        first = first or got
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+@pytest.mark.cuda
+def test_ingest_smem_mirror_matches_kernel(dev):
+    """ingest_plan's shared memory is the kernel's own count."""
+    for shape, m, g, method, dtype in (
+            ((256, 256, 3), 192, 32, "nearest", torch.float32),
+            ((256, 256, 3), 16, 32, "box", torch.uint8),
+            ((20, 20, 3), 15, 13, "box", torch.uint8),
+            ((1080, 1920, 3), 448, 64, "nearest", torch.float32)):
+        p = tvo.ingest_plan(8, *shape, m, g, 8, method=method, dtype=dtype)
+        assert p["smem"] == tvo.ingest_smem_bytes(
+            shape[0], m, g, shape[2], p["ranks"], p["rows"], p["stages"],
+            p["slot_bytes"], method)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scatter_kernel_rows_and_null_refs(dev, pool):
+    """16-byte rows, the 1x1x3 null refs, 75-element rows and inputs off a
+    16-byte boundary: bit-exact to plain and to scatter_banded_plain, the
+    inputs untouched, two calls bitwise equal."""
+    admit = torch.tensor([True, False, True, True], device=dev)
+    for res, rshape in ((48, (32, 32, 3)), (16, (1, 1, 3)), (5, (7, 7, 3))):
+        batch = _rand((4, res, res, 3), seed=29).to(dev).to(pool)
+        model = _rand((4, res, res, 3), seed=30).to(dev)
+        refs = _rand((4,) + rshape, seed=31).to(dev)
+        gate = _rand((4,) + rshape, seed=32).to(dev)
+        for b, mo in ((batch, model), (_off16(batch), _off16(model))):
+            held = (b.clone(), refs.clone())
+            got = tvo.scatter_admit(b, mo, refs, gate, admit)
+            for g, w, v, a in zip(
+                    got, tvo.scatter_admit_plain(b, mo, refs, gate, admit),
+                    tvo.scatter_banded_plain(b, mo, refs, gate, admit),
+                    tvo.scatter_admit(b, mo, refs, gate, admit)):
+                assert torch.equal(g, w) and torch.equal(g, v)
+                assert torch.equal(g, a)
+            assert torch.equal(b, held[0]) and torch.equal(refs, held[1])
+
+
 @pytest.mark.cuda
 def test_staging_buffer_waits_for_its_upload(dev):
     """The staging buffer is pinned and uploaded without blocking, so the

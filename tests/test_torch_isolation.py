@@ -152,9 +152,9 @@ def test_library_key_follows_the_headers_a_source_includes(tmp_path,
                                                            monkeypatch):
     """A kernel library is rebuilt when its source or a csrc/ header that
     the source includes changes, and only then: an edit of the attention
-    helpers changes the keys of the three libraries that include them
-    (both attention libraries and the recurrent one) and not the vision
-    library's."""
+    helpers changes the keys of the four libraries that include them (both
+    attention libraries, the recurrent one and the vision one), an edit of
+    a header that no source includes changes none."""
     from repro_torch.kernels import build
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -168,4 +168,10 @@ def test_library_key_follows_the_headers_a_source_includes(tmp_path,
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: build.source_key(n) for n in names}
     changed = {n for n in names if after[n] != before[n]}
-    assert changed == {"attention", "decode_attention", "recurrent"}
+    assert changed == {"attention", "decode_attention", "recurrent",
+                       "vision_ops"}
+    unused = csrc / "unused_helpers.cuh"
+    unused.write_text("#pragma once\n")
+    before = after
+    unused.write_text("#pragma once\n// edited\n")
+    assert {n: build.source_key(n) for n in names} == before

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's main path spends a tick, on one NVIDIA card.
 
-    python3 tools/torch_main_path_profile.py
+    python3 tools/torch_main_path_profile.py [--src DIR]
 
 Runs the same main path as ``chip_smoke.py`` (``VisionServeEngine`` with
 ``use_kernels=True``, slots=32, frame_res=256, input_res=192, 16 outer +
@@ -14,11 +14,14 @@ Runs the same main path as ``chip_smoke.py`` (``VisionServeEngine`` with
      and the device's busy share of the drain's wall time (one stream, so
      the sum is the busy time).
 
-Prints the card's name and power limit and one JSON summary line.  Needs a
-card; exits non-zero without one.
+``--src DIR`` profiles the package under ``DIR/src`` (another checkout,
+such as the parent's ``git archive``), so the parent and the change can be
+profiled in one call, one process each.  Prints the card's name and power
+limit and one JSON summary line.  Needs a card; exits non-zero without one.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -59,12 +62,16 @@ def drive(eng, streams):
     return dt, eng.ticks - ticks0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=ROOT,
+                    help="the checkout whose package to profile")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_main_path_profile: needs an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
     from repro_torch.core.engine_core import INNER, OUTER
     from repro_torch.data.synthetic import frame_loop
     from repro_torch.obs.tracing import SpanTracer
@@ -118,7 +125,7 @@ def main() -> int:
 
     print(card, flush=True)
     print(json.dumps({
-        "card": card, "ticks": ticks, "drain_ms": wall_s * 1e3,
+        "card": card, "src": args.src, "ticks": ticks, "drain_ms": wall_s * 1e3,
         "ms_per_tick": wall_s * 1e3 / ticks,
         "host_phase_ms_per_tick": {k: v / ticks for k, v in
                                    sorted(phases.items())},

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import functools
 import json
 import multiprocessing
 import os
@@ -45,12 +46,35 @@ def _use(tree: str) -> None:
     sys.path.insert(0, os.path.join(tree, "src"))
 
 
-def _build(tree: str) -> float:
+def _build(tree: str, source: str = "recurrent") -> float:
     _use(tree)
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build("recurrent")
+    build.build(source)
     return time.perf_counter() - t0
+
+
+def settings(mod, attr, values, sweep):
+    """(label, value) of each setting to time: the default alone, or every
+    value with ``sweep`` where the wrapper offers the knob."""
+    if not (sweep and hasattr(mod, attr)):
+        return [("", None)]
+    return [(f" {attr} {v}", v) for v in values]
+
+
+def timed(mod, attr, value, kern, check):
+    """``check(kern())``, then kern's cold-L2 time, with ``mod.attr`` set
+    to ``value`` (unless None) for the duration."""
+    import chip_smoke as cs
+    old = getattr(mod, attr, None)
+    if value is not None:
+        setattr(mod, attr, value)
+    try:
+        check(kern())
+        return cs.time_ms(kern)
+    finally:
+        if value is not None:
+            setattr(mod, attr, old)
 
 
 def _turn(tree: str, sweep: bool) -> dict:
@@ -64,32 +88,13 @@ def _turn(tree: str, sweep: bool) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
-
-    def settings(mod, attr, values):
-        """(label, value) of each setting to time: the default alone, or
-        every value with ``sweep`` where the wrapper offers the knob."""
-        if not (sweep and hasattr(mod, attr)):
-            return [("", None)]
-        return [(f" {attr} {v}", v) for v in values]
-
-    def timed(mod, attr, value, kern, check):
-        old = getattr(mod, attr, None)
-        if value is not None:
-            setattr(mod, attr, value)
-        try:
-            check(kern())
-            return cs.time_ms(kern)
-        finally:
-            if value is not None:
-                setattr(mod, attr, old)
-
     for S in (cs.TOK_CHUNK, 16):
         a = 0.2 + 0.799 * torch.rand(1, S, 4096, generator=gen, device=dev)
         b = torch.randn(1, S, 4096, generator=gen, device=dev)
         h0 = torch.randn(1, 4096, generator=gen, device=dev)
         want = rglru_k.rglru_scan_plain(a, b, h0)
         for label, value in settings(rglru_k, "CHANNELS_PER_BLOCK",
-                                     (16, 32, 64)):
+                                     (16, 32, 64), sweep):
             out[f"rglru_scan S {S}{label}"] = timed(
                 rglru_k, "CHANNELS_PER_BLOCK", value,
                 lambda: rglru_k.rglru_scan(a, b, h0),
@@ -105,18 +110,20 @@ def _turn(tree: str, sweep: bool) -> dict:
     return out
 
 
-def main(argv=None) -> int:
+def compare(argv, source: str, turn, sweep_help: str) -> int:
+    """Build ``csrc/<source>.cu`` in each checkout, then time each side
+    with ``turn(tree, sweep) -> {case: ms}`` in turns; prints every turn, a
+    summary, the card and one JSON line."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", required=True, action="append",
                     help="another checkout of the repo (the parent, or a "
                          "variant); may be given more than once")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--sweep", action="store_true",
-                    help="also time every channels per block")
+    ap.add_argument("--sweep", action="store_true", help=sweep_help)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
-        print("torch_recurrent_compare: needs an NVIDIA card",
+        print(f"{os.path.basename(sys.argv[0])}: needs an NVIDIA card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
@@ -127,7 +134,8 @@ def main(argv=None) -> int:
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(len(trees),
                                                 mp_context=ctx) as pool:
-        secs = dict(zip(trees, pool.map(_build, trees.values())))
+        secs = dict(zip(trees, pool.map(functools.partial(
+            _build, source=source), trees.values())))
     print("build: " + "  ".join(f"{k} {v:.1f} s" for k, v in secs.items()),
           flush=True)
     order = (list(bases) + ["change", "change"]
@@ -136,7 +144,7 @@ def main(argv=None) -> int:
     for side in order:
         with concurrent.futures.ProcessPoolExecutor(
                 1, mp_context=ctx) as pool:
-            row = pool.submit(_turn, trees[side], args.sweep).result()
+            row = pool.submit(turn, trees[side], args.sweep).result()
         times[side].append(row)
         print(f"{side}: " + "  ".join(f"{k} {v:.4f} ms"
                                       for k, v in row.items()), flush=True)
@@ -150,6 +158,11 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "build_s": secs, "turns": times,
                       "median_ms": summary}), flush=True)
     return 0
+
+
+def main(argv=None) -> int:
+    return compare(argv, "recurrent", _turn,
+                   "also time every channels per block")
 
 
 if __name__ == "__main__":
