@@ -19,14 +19,14 @@ wall seconds):
                tiers' model resolutions 48/32/16 under gate 32, a uint8
                row of 60 bytes, bf16 pools, the 1x1 null refs, rows that
                are not 16-byte units); ``ingest_frame`` also bitwise equal
-               to ``ingest_banded_plain``, the kernel's arithmetic band by
-               band.  Time kernel, plain version and, where one PyTorch
+               to ``ingest_blocks_plain``, the kernel's arithmetic in plain
+               PyTorch.  Time kernel, plain version and, where one PyTorch
                call computes the same function, that call, each with a
                cold L2 (inputs come from HBM, as the bound assumes).  Then
-               kernels 1-2's grid, cluster, block, shared memory and
-               registers with a bitwise repeat, their times at the frugal
-               tier (model 16 into a bf16 pool), and ingest at 2, 4 and 8
-               blocks a stream, each setting held against plain first.
+               kernels 1-2's grid, block, shared memory and registers
+               with a bitwise repeat, their times at the frugal tier
+               (model 16 into a bf16 pool), and ingest at 1, 2 and 4 model
+               rows a block, each setting held against plain first.
   3. main path ``VisionServeEngine(use_kernels=True, slots=32,
                frame_res=256, input_res=192)`` with the motion gate on:
                16 outer + 16 inner dash-cam streams, 32 frames each,
@@ -149,7 +149,7 @@ REPLACES = {
 }
 SOURCE = "src/repro_torch/kernels/csrc/vision_ops.cu"
 TIER_RES = (48, 32, 16)               # tiers' model resolutions (gate 32)
-RANK_SWEEP = (2, 4, 8)                # ingest blocks (cluster ranks) a stream
+ROWS_SWEEP = (1, 2, 4)                # model rows an ingest thread holds
 VISION_REGS = {}                      # (kernel, dtype): ptxas registers
 ATTN_REPLACES = {
     "paged_decode": "src/repro/kernels/paged_attention.py:49",
@@ -288,20 +288,20 @@ def check_kernels(torch, vo, dev):
     # ingest_frame: main-path shape, then uint8 / box / g=20 edges, the
     # tiers' model resolutions under gate 32 (their gate rows are not
     # among the model's), a uint8 row of 60 bytes (the kernel's scalar
-    # path); every case also bitwise equal to the banded model of the
+    # path); every case also bitwise equal to the plain model of the
     # kernel's arithmetic and to a second call
     kw = dict(model_res=m, gate_res=g, block=BLOCK)
 
     def ingest_case(f, r, exact, **kwargs):
         got = vo.ingest_frame(f, r, **kwargs)
-        err = max_err(got, vo.ingest_frame_plain(f, r, **kwargs))
+        want = vo.ingest_frame_plain(f, r, **kwargs)
+        err = max_err(got, want)
         if exact:                       # nearest model/gate frames
-            max_err(got[:2], vo.ingest_frame_plain(f, r, **kwargs)[:2],
-                    exact=True)
-        if not all(map(torch.equal, got, vo.ingest_banded_plain(
+            max_err(got[:2], want[:2], exact=True)
+        if not all(map(torch.equal, got, vo.ingest_blocks_plain(
                 f, r, **kwargs))):
             fail(f"ingest_frame {tuple(f.shape)} {kwargs}: not bitwise "
-                 f"equal to ingest_banded_plain")
+                 f"equal to ingest_blocks_plain")
         if not all(map(torch.equal, got, vo.ingest_frame(f, r, **kwargs))):
             fail(f"ingest_frame {tuple(f.shape)} {kwargs}: two calls differ")
         errs["ingest_frame"] = max(errs["ingest_frame"], err)
@@ -323,7 +323,7 @@ def check_kernels(torch, vo, dev):
                     method == "nearest", model_res=16, gate_res=10, block=4,
                     method=method)
     print(f"ingest_frame: nearest frames bit-identical to plain, scores "
-          f"within TIGHT, all bitwise equal to ingest_banded_plain and to a "
+          f"within TIGHT, all bitwise equal to ingest_blocks_plain and to a "
           f"second call, at S {S} 256 px fp32/uint8 nearest/box -> {m}/{g} "
           f"and -> {m}/20, tiers {TIER_RES}/{g}, uint8 20 px -> 16/10",
           flush=True)
@@ -433,7 +433,7 @@ def check_kernels(torch, vo, dev):
               f"kernel {time_ms(kern):.4f} ms  plain {time_ms(plain):.4f} ms"
               f"  bound {bound(nbytes, 0)[0] * 1e3:.2f} us "
               f"({nbytes / 1e6:.3f} MB)", flush=True)
-    rank_sweep(vo, frames, refs, kw)
+    rows_sweep(vo, frames, refs, kw)
     return rows
 
 
@@ -447,29 +447,21 @@ def vision_report(log: str) -> dict:
 
 
 def vision_geometry(torch, vo, frames, refs, batch, model, gate, admit, kw):
-    """Print kernels 1-2's launch at the main path's shapes (grid,
-    cluster, block, shared memory, registers) and fail unless two calls
-    are bitwise equal."""
+    """Print kernels 1-2's launch at the main path's shapes (grid, block,
+    shared memory, registers) and fail unless two calls are bitwise
+    equal."""
     S, H, W, C = frames.shape
     p = vo.ingest_plan(S, H, W, C, kw["model_res"], kw["gate_res"],
-                       kw["block"], dtype=frames.dtype)
-    if p["smem"] != vo.ingest_smem_bytes(H, kw["model_res"], kw["gate_res"],
-                                         C, p["ranks"], p["rows"],
-                                         p["stages"], p["slot_bytes"],
-                                         "nearest"):
-        fail("ingest_plan's shared memory disagrees with the kernel's count")
+                       kw["block"])
     if not all(map(torch.equal, vo.ingest_frame(frames, refs, **kw),
                    vo.ingest_frame(frames, refs, **kw))):
         fail("ingest_frame: two calls on the same inputs differ")
     print(f"kernel ingest_frame {tuple(frames.shape)} fp32 -> "
           f"{kw['model_res']}/{kw['gate_res']}: grid {p['grid']} = "
-          f"{p['blocks']} blocks of {p['threads']} threads in clusters of "
-          f"{p['cluster']}, model rows {p['model_rows'][0]} ... gate rows "
-          f"{p['gate_rows'][0]} ..., a ring of {p['stages']} stages x "
-          f"{p['rows']} rows x {p['slot_bytes']} B, {p['smem']} B dynamic "
-          f"shared memory, "
-          f"vector paths src {p['src_vec']} model {p['model_vec']} refs "
-          f"{p['refs_vec']}, {VISION_REGS.get(('ingest_kernel', 'f32'))} "
+          f"{p['blocks']} blocks of {p['block']} threads ({S} gate blocks, "
+          f"{p['rows']} model rows a thread, {p['units']} 16-byte units a "
+          f"row), {p['smem']} B dynamic shared memory, vector path "
+          f"{p['model_vec']}, {VISION_REGS.get(('ingest_kernel', 'f32'))} "
           f"(registers, B spilled); two calls bitwise equal", flush=True)
     q = vo.scatter_plan(S, batch[0].numel(), refs[0].numel(), batch.dtype)
     if not all(map(torch.equal, vo.scatter_admit(batch, model, refs, gate,
@@ -485,25 +477,25 @@ def vision_geometry(torch, vo, frames, refs, batch, model, gate, admit, kw):
           f"spilled); two calls bitwise equal", flush=True)
 
 
-def rank_sweep(vo, frames, refs, kw):
-    """Cold-L2 time of ingest_frame at each ranks per stream of
-    RANK_SWEEP, each setting first held against the plain version (nearest
+def rows_sweep(vo, frames, refs, kw):
+    """Cold-L2 time of ingest_frame at each model rows a thread of
+    ROWS_SWEEP, each setting first held against the plain version (nearest
     frames bit-exact, the score within TIGHT); the default restored
     after."""
     want = vo.ingest_frame_plain(frames, refs, **kw)
-    default, cells = vo.INGEST_RANKS, []
+    default, cells = vo.ROWS_PER_THREAD, []
     try:
-        for ranks in RANK_SWEEP:
-            vo.INGEST_RANKS = ranks
+        for rows in ROWS_SWEEP:
+            vo.ROWS_PER_THREAD = rows
             got = vo.ingest_frame(frames, refs, **kw)
             max_err(got[:2], want[:2], exact=True)
             max_err(got[2], want[2])
             ms = time_ms(lambda: vo.ingest_frame(frames, refs, **kw))
-            cells.append(f"{ranks}: {ms:.4f}")
+            cells.append(f"{rows}: {ms:.4f}")
     finally:
-        vo.INGEST_RANKS = default
-    print(f"kernel ingest_frame {tuple(frames.shape)}: ranks per stream -> "
-          f"cold-L2 ms  " + "  ".join(cells) + f" (default {default}; each "
+        vo.ROWS_PER_THREAD = default
+    print(f"kernel ingest_frame {tuple(frames.shape)}: model rows a thread "
+          f"-> cold-L2 ms  " + "  ".join(cells) + f" (default {default}; each "
           f"setting held against plain first)", flush=True)
 
 

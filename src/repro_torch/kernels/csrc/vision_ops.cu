@@ -6,28 +6,24 @@
 // frame is 786 KB, more than the 227 KB of shared memory a Hopper block can
 // have, so these kernels do not copy that layout:
 //
-//   * ingest    — one launch, grid (R, S), a thread block cluster of R
-//                 blocks per stream (R <= 8, the portable cluster size).
-//                 Block r owns model rows [r*m/R, (r+1)*m/R) and gate rows
-//                 [r*g/R, (r+1)*g/R).  It streams the source rows those
-//                 need through a ring of shared-memory slots, 16-byte
-//                 cp.async copies several rows ahead of the row it
-//                 resamples, and writes each model row as 16-byte vectors
-//                 gathered from shared memory through a column map that
-//                 the block computes once (all index arithmetic 32-bit).
-//                 Nearest takes source row i*H/m; box streams the bucket
-//                 [i*H/m, (i+1)*H/m) and accumulates each output element
-//                 in shared memory, in the same (row, column) order as the
-//                 one-pass sum.  The gate rows read their own source rows
-//                 (they need not be among the model's), write the gate
-//                 frame and the channel-mean |gate - ref| into rank 0's
-//                 shared memory (distributed shared memory); after a
-//                 cluster barrier rank 0 reduces the block x block tiles,
-//                 a warp a tile in a fixed order, and writes the max of
-//                 the tile means (partial edge tiles average their valid
-//                 pixels only: pad-and-mask).  No atomics, so two calls
-//                 give the same bits.  Rows whose length or start is not a
-//                 multiple of 16 bytes take a scalar path in the kernel.
+//   * ingest    — one launch, grid (S, 1 + m / rows, chunks).  A block
+//                 per stream computes the small gate frame, keeps the
+//                 channel-mean |gate - ref| in shared memory and reduces
+//                 the block x block tiles, a warp a tile in a fixed order,
+//                 to the max of the tile means (partial edge tiles average
+//                 their valid pixels only: pad-and-mask); no atomics, so
+//                 two calls give the same bits.  Every other block holds a
+//                 few model rows, one thread per 16 bytes of output: it
+//                 gathers its four source elements through a column map
+//                 the wrapper tabulates once (no index division per
+//                 element; all index arithmetic 32-bit) and writes one
+//                 float4.  No thread of a model block waits on another, so
+//                 the card keeps every row's loads in flight; the gate
+//                 blocks come first in the grid and run beside them.  Model
+//                 rows that are not 16-byte multiples are written element
+//                 by element.  (A cluster of blocks a stream streaming
+//                 source rows through a cp.async ring, its map gathered in
+//                 rank 0's shared memory, measured slower: PERF.md.)
 //   * resample  — a direct gather, one thread per output pixel and many
 //                 blocks per stream: nearest loads one source pixel, box
 //                 averages its bucket.  Normalization (x 1/255 for uint8)
@@ -49,15 +45,12 @@
 // element costs a handful of flops.  Plain C entry points, loaded with
 // ctypes; each returns cudaGetLastError() so the wrapper can raise.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_helpers.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -170,327 +163,124 @@ __global__ void resample_kernel(const T* __restrict__ frames,
 }
 
 // ---------------------------------------------------------------------------
-// ingest: one launch, a cluster of R blocks per stream
+// ingest: one launch; blocks of model rows, and a block a stream's gate
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxRanks = 8;      // portable cluster size
-constexpr int kMaxStages = 8;     // ring stages (cp.async groups in flight)
-constexpr int kSrcVec = 1;        // flags (kernels/vision_ops.py ingest_plan)
-constexpr int kModelVec = 2;
-constexpr int kRefsVec = 4;
+constexpr int kModelVec = 1;      // flags (kernels/vision_ops.py ingest_plan)
+constexpr int kMaxRows = 4;       // model rows a thread holds, at most
+constexpr int kGateBatch = 4;     // gate pixels a thread loads at once
 
 // What the wrapper's ingest_plan chose, passed by value.
 struct IngestGeo {
-  int H, W, C, m, g, block;
-  int ranks, rows, stages, slot_bytes, flags, method;
+  int H, W, C, m, g, block, rows, flags, method;
   float scale;
 };
 
-__host__ __device__ __forceinline__ int round16(int n) {
-  return (n + 15) & ~15;
+// One normalized source element, read through the read-only cache.
+// __fmul_rn is never contracted into a following add, so a box sum rounds
+// as the plain model's mul-then-add.
+__device__ __forceinline__ float norm32(const float* p, int o, float) {
+  return __ldg(p + o);
 }
-
-// One job of a block's row loop: source row y, staged, adds to output row
-// i, whose bucket of source rows is [y0, y1).  Nearest: y0 = y, y1 = y + 1.
-struct __align__(16) IngestJob {
-  int y, i, y0, y1;
-};
-
-// Job k of a block: the model rows' source rows first, then the gate
-// rows'.  Nearest: one source row per output row.  Box: the source rows
-// [lo*H/res, hi*H/res) in order.  The kernel tabulates them once.
-__device__ __forceinline__ IngestJob ingest_job(int k, int n_model, int m_lo,
-                                                int g_lo, int m, int g,
-                                                int H, bool box) {
-  const bool gate = k >= n_model;
-  const int res = gate ? g : m;
-  const int lo = gate ? g_lo : m_lo;
-  const int kk = gate ? k - n_model : k;
-  IngestJob j;
-  if (!box) {
-    j.i = lo + kk;
-    j.y = j.i * H / res;
-    j.y0 = j.y;
-    j.y1 = j.y + 1;
-  } else {
-    j.y = lo * H / res + kk;
-    j.i = ((j.y + 1) * res - 1) / H;     // the bucket that holds row y
-    j.y0 = j.i * H / res;
-    j.y1 = (j.i + 1) * H / res;
-  }
-  return j;
-}
-
-__host__ __device__ __forceinline__ int band_jobs(int lo, int hi, int res,
-                                                  int H, bool box) {
-  return box ? hi * H / res - lo * H / res : hi - lo;
-}
-
-// The most jobs any rank of the cluster has.
-__host__ __device__ __forceinline__ int ingest_jobs_max(const IngestGeo& G) {
-  const bool box = G.method != kNearest;
-  int most = 0;
-  for (int r = 0; r < G.ranks; ++r) {
-    const int n =
-        band_jobs(r * G.m / G.ranks, (r + 1) * G.m / G.ranks, G.m, G.H,
-                  box) +
-        band_jobs(r * G.g / G.ranks, (r + 1) * G.g / G.ranks, G.g, G.H, box);
-    most = n > most ? n : most;
-  }
-  return most;
-}
-
-// Byte offsets of the dynamic shared memory regions, each 16-byte aligned;
-// kernels/vision_ops.py ingest_plan mirrors this layout.
-struct IngestLayout {
-  int ring, dmap, refs, jobs, me0, me1, gx, acc, total;
-};
-
-__host__ __device__ __forceinline__ IngestLayout
-ingest_layout(const IngestGeo& G) {
-  const bool box = G.method != kNearest;
-  const int band = (G.g + G.ranks - 1) / G.ranks;   // most gate rows a block
-  IngestLayout L;
-  int p = 0;
-  L.ring = p;  p += G.stages * G.rows * G.slot_bytes;  // source rows
-  L.dmap = p;  p += round16(G.g * G.g * 4);         // |gate - ref| (rank 0)
-  L.refs = p;  p += round16(band * G.g * G.C * 4);  // this block's refs rows
-  L.jobs = p;  p += ingest_jobs_max(G) * 16;        // the job table
-  L.me0 = p;   p += round16(G.m * G.C * 4);         // element -> source offset
-  L.me1 = p;   p += box ? round16(G.m * G.C * 4) : 0;  // box: bucket end
-  L.gx = p;    p += round16((G.g + 1) * 4);         // gate pixel -> column
-  L.acc = p;   p += box ? round16((G.m + G.g) * G.C * 4) : 0;  // box sums
-  L.total = p;
-  return L;
-}
-
-// cp.async.wait_group takes an immediate: allow n groups still pending
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<kMaxStages - 1>(); break;
-  }
-}
-
-// One normalized source element.  __fmul_rn is never contracted into a
-// following add, so a box sum rounds as the plain model's mul-then-add.
-__device__ __forceinline__ float norm32(const float* row, int o, float) {
-  return row[o];
-}
-__device__ __forceinline__ float norm32(const uint8_t* row, int o,
+__device__ __forceinline__ float norm32(const uint8_t* p, int o,
                                         float scale) {
-  return __fmul_rn(static_cast<float>(row[o]), scale);
+  return __fmul_rn(static_cast<float>(__ldg(p + o)), scale);
 }
 
-// Model element e of the output row from the staged source row.  Nearest:
-// the value.  Box: adds this source row's part of e's bucket to acc[e];
-// returns the mean on the bucket's last row.
+// Box mean of one output element: source rows [y0, y1) x the elements o0,
+// o0 + C, ... < o1 of each, added row by row, left to right.
 template <typename T>
-__device__ __forceinline__ float model_elem(const T* row, const int* me0,
-                                            const int* me1, float* acc,
-                                            int e, int C, bool box,
-                                            const IngestJob& jb, float scale) {
-  if (!box) return norm32(row, me0[e], scale);
-  float a = jb.y == jb.y0 ? 0.f : acc[e];
+__device__ __forceinline__ float box_mean(const T* frame, int rowC, int y0,
+                                          int y1, int o0, int o1, int C,
+                                          float scale) {
+  float a = 0.f;
   int n = 0;
-  for (int o = me0[e]; o < me1[e]; o += C, ++n) a += norm32(row, o, scale);
-  if (jb.y != jb.y1 - 1) {
-    acc[e] = a;
-    return 0.f;
+  for (int y = y0; y < y1; ++y) {
+    const T* row = frame + y * rowC;
+    n = 0;
+    for (int o = o0; o < o1; o += C, ++n) a += norm32(row, o, scale);
   }
-  return a / static_cast<float>((jb.y1 - jb.y0) * n);
+  return a / static_cast<float>((y1 - y0) * n);
 }
 
-// The row loop does no integer division (each costs a chain of dependent
-// instructions, and the loop is a chain of dependent steps): the jobs and
-// the column maps are tabulated in parallel first, the ring's slots
-// advance by counters.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ingest_kernel(const T* __restrict__ frames, const float* __restrict__ refs,
-              float* __restrict__ model, float* __restrict__ gate,
-              float* __restrict__ score, IngestGeo G) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int r = static_cast<int>(cluster.block_rank());
-  const int s = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int H = G.H, W = G.W, C = G.C, m = G.m, g = G.g;
-  const bool box = G.method != kNearest;
-  const int mC = m * C, gC = g * C, rowC = W * C;
-  const IngestLayout L = ingest_layout(G);
-  unsigned char* ring = smem + L.ring;
-  float* dmap = reinterpret_cast<float*>(smem + L.dmap);
-  float* refs_s = reinterpret_cast<float*>(smem + L.refs);
-  IngestJob* jobs = reinterpret_cast<IngestJob*>(smem + L.jobs);
-  int* me0 = reinterpret_cast<int*>(smem + L.me0);
-  int* me1 = reinterpret_cast<int*>(smem + L.me1);
-  int* gx = reinterpret_cast<int*>(smem + L.gx);
-  float* macc = reinterpret_cast<float*>(smem + L.acc);
-  float* gacc = macc + mC;
-
-  const int m_lo = r * m / G.ranks, m_hi = (r + 1) * m / G.ranks;
-  const int g_lo = r * g / G.ranks, g_hi = (r + 1) * g / G.ranks;
-  const int n_model = band_jobs(m_lo, m_hi, m, H, box);
-  const int n_jobs = n_model + band_jobs(g_lo, g_hi, g, H, box);
-  const T* frame = frames + static_cast<long long>(s) * H * rowC;
-
-  // this block's refs rows: the first cp.async group
-  {
-    const float* src = refs + (static_cast<long long>(s) * g + g_lo) * gC;
-    const int n = (g_hi - g_lo) * gC;
-    if (G.flags & kRefsVec)
-      for (int o = tid * 4; o < n; o += kThreads * 4)
-        cp_async16(refs_s + o, src + o, true);
-    else
-      for (int o = tid; o < n; o += kThreads) refs_s[o] = src[o];
-  }
-  // the job table and the column maps
-  for (int k = tid; k < n_jobs; k += kThreads)
-    jobs[k] = ingest_job(k, n_model, m_lo, g_lo, m, g, H, box);
-  for (int j = tid; j < m; j += kThreads) {
-    const int x0 = (j * W / m) * C, x1 = ((j + 1) * W / m) * C;
-    for (int c = 0; c < C; ++c) {
-      me0[j * C + c] = x0 + c;
-      if (box) me1[j * C + c] = x1 + c;
-    }
-  }
-  for (int j = tid; j <= g; j += kThreads) gx[j] = j * W / g;
-  // arrive now, wait before the first write to rank 0's map: every block
-  // of the cluster has started by then
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  bool started = false;
-  float* dmap0 = cluster.map_shared_rank(dmap, 0);
-  __syncthreads();
-
-  // the ring: stages of G.rows source rows, one job each
-  const int row_bytes = rowC * static_cast<int>(sizeof(T));
-  const int stage_bytes = G.rows * G.slot_bytes;
-  auto stage = [&](int st, int slot) {
-    unsigned char* dst = ring + slot * stage_bytes;
-    for (int j = 0, k = st * G.rows; j < G.rows && k < n_jobs; ++j, ++k) {
-      const T* src = frame + jobs[k].y * rowC;
-      if (G.flags & kSrcVec) {
-        const unsigned char* b = reinterpret_cast<const unsigned char*>(src);
-        for (int o = tid * 16; o < row_bytes; o += kThreads * 16)
-          cp_async16(dst + o, b + o, true);
-      } else {
-        T* d = reinterpret_cast<T*>(dst);
-        for (int o = tid; o < rowC; o += kThreads) d[o] = src[o];
-      }
-      dst += G.slot_bytes;
-    }
-  };
-  const int n_stages = (n_jobs + G.rows - 1) / G.rows;
-  for (int st = 0; st < G.stages - 1; ++st) {
-    if (st < n_stages) stage(st, st);
-    cp_async_commit();
-  }
-
-  int rslot = 0, wslot = G.stages - 1;
-  for (int st = 0; st < n_stages; ++st) {
-    if (st + G.stages - 1 < n_stages)  // into the slot stage st - 1 freed
-      stage(st + G.stages - 1, wslot);
-    cp_async_commit();
-    cp_async_wait_pending(G.stages - 1);          // stage st's rows landed
-    __syncthreads();
-    const unsigned char* rows = ring + rslot * stage_bytes;
-    for (int j = 0, k = st * G.rows; j < G.rows && k < n_jobs; ++j, ++k) {
-      const IngestJob jb = jobs[k];
-      const T* row = reinterpret_cast<const T*>(rows + j * G.slot_bytes);
-      const bool emit = !box || jb.y == jb.y1 - 1;
-      if (k < n_model) {
-        float* out = model + (static_cast<long long>(s) * m + jb.i) * mC;
-        if (G.flags & kModelVec) {
-          for (int q = tid; q < mC / 4; q += kThreads) {
-            const int e = q * 4;
-            float4 v;
-            if (!box) {                // four source offsets in one load
-              const int4 o = *reinterpret_cast<const int4*>(me0 + e);
-              v = make_float4(norm32(row, o.x, G.scale),
-                              norm32(row, o.y, G.scale),
-                              norm32(row, o.z, G.scale),
-                              norm32(row, o.w, G.scale));
-            } else {
-              v.x = model_elem(row, me0, me1, macc, e, C, box, jb, G.scale);
-              v.y = model_elem(row, me0, me1, macc, e + 1, C, box, jb,
-                               G.scale);
-              v.z = model_elem(row, me0, me1, macc, e + 2, C, box, jb,
-                               G.scale);
-              v.w = model_elem(row, me0, me1, macc, e + 3, C, box, jb,
-                               G.scale);
-            }
-            if (emit) *reinterpret_cast<float4*>(out + e) = v;
-          }
-        } else {
-          for (int e = tid; e < mC; e += kThreads) {
-            const float v = model_elem(row, me0, me1, macc, e, C, box, jb,
-                                       G.scale);
-            if (emit) out[e] = v;
-          }
-        }
-        continue;
-      }
-      if (!started) {
-        asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-        started = true;
-      }
-      float* out = gate + (static_cast<long long>(s) * g + jb.i) * gC;
-      const float* ref = refs_s + (jb.i - g_lo) * gC;
-      for (int p = tid; p < g; p += kThreads) {
-        float v[kMaxC];
-#pragma unroll
-        for (int c = 0; c < kMaxC; ++c) {
-          if (c >= C) break;
-          if (!box) {
-            v[c] = norm32(row, gx[p] * C + c, G.scale);
-            continue;
-          }
-          float a = jb.y == jb.y0 ? 0.f : gacc[p * C + c];
-          int n = 0;
-          for (int x = gx[p]; x < gx[p + 1]; ++x, ++n)
-            a += norm32(row, x * C + c, G.scale);
-          if (emit)
-            v[c] = a / static_cast<float>((jb.y1 - jb.y0) * n);
-          else
-            gacc[p * C + c] = a;
-        }
-        if (!emit) continue;
-        float sum = 0.f;
-#pragma unroll
-        for (int c = 0; c < kMaxC; ++c) {
-          if (c >= C) break;
-          out[p * C + c] = v[c];
-          sum += fabsf(v[c] - ref[p * C + c]);
-        }
-        dmap0[jb.i * g + p] = sum / static_cast<float>(C);
-      }
-    }
-    __syncthreads();             // the slot is free for stage st + stages
-    wslot = rslot;
-    rslot = rslot + 1 == G.stages ? 0 : rslot + 1;
-  }
-  if (!started) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  cp_async_wait<0>();
-  cluster.sync();                // every rank's map rows have landed
-  if (r != 0) return;
-
-  // rank 0: a warp a tile; lane l sums the tile's columns l, l + 32, ...
-  // top to bottom, then a fixed tree of shuffles adds the lanes
-  const int B = G.block;
+// Max over every thread of a (blockDim.x, blockDim.y) block; valid in
+// thread 0.
+__device__ __forceinline__ float block_max_all(float v, int tid,
+                                               int nthreads) {
+  __shared__ float warp_max[32];
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_down_sync(kFull, v, off));
   const int lane = tid & 31, warp = tid >> 5;
+  if (lane == 0) warp_max[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (nthreads >> 5) ? warp_max[lane] : -INFINITY;
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_down_sync(kFull, v, off));
+  }
+  return v;
+}
+
+// Stream s's gate block: the g x g gate frame, the channel-mean
+// |gate - ref| in shared memory, then a warp a block x block tile (lane l
+// sums the tile's columns l, l + 32, ... top to bottom, a fixed tree of
+// shuffles adds the lanes) and the max of the tile means.  A thread loads
+// kGateBatch pixels and their references before it uses any, so their
+// loads are in flight together.
+template <typename T>
+__device__ void gate_block(const T* __restrict__ frame,
+                           const float* __restrict__ refs,
+                           const int* __restrict__ gx,
+                           float* __restrict__ gate, float* __restrict__ score,
+                           float* dmap, const IngestGeo& G, int s) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int H = G.H, C = G.C, g = G.g, rowC = G.W * C;
+  const bool box = G.method != kNearest;
+  const long long base = static_cast<long long>(s) * g * g * C;
+  for (int p0 = tid; p0 < g * g; p0 += kGateBatch * nthreads) {
+    float v[kGateBatch][kMaxC], r[kGateBatch][kMaxC];
+#pragma unroll
+    for (int k = 0; k < kGateBatch; ++k) {
+      const int p = p0 + k * nthreads;
+      if (p >= g * g) break;
+      const int i = p / g, j = p - i * g;
+      const int y0 = i * H / g, y1 = box ? (i + 1) * H / g : y0 + 1;
+      const int x0 = gx[j] * C, x1 = box ? gx[j + 1] * C : x0 + C;
+#pragma unroll
+      for (int c = 0; c < kMaxC; ++c) {
+        if (c >= C) break;
+        v[k][c] = box ? box_mean(frame, rowC, y0, y1, x0 + c, x1 + c, C,
+                                 G.scale)
+                      : norm32(frame + y0 * rowC, x0 + c, G.scale);
+        r[k][c] = __ldg(refs + base + p * C + c);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGateBatch; ++k) {
+      const int p = p0 + k * nthreads;
+      if (p >= g * g) break;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kMaxC; ++c) {
+        if (c >= C) break;
+        gate[base + p * C + c] = v[k][c];
+        sum += fabsf(v[k][c] - r[k][c]);
+      }
+      dmap[p] = sum / static_cast<float>(C);
+    }
+  }
+  __syncthreads();
+  const int B = G.block, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
   float best = -INFINITY;
-  int t = 0;
+  int owner = 0;
   for (int y0 = 0; y0 < g; y0 += B) {
     const int hy = min(B, g - y0);
-    for (int x0 = 0; x0 < g; x0 += B, ++t) {
-      if ((t & (kThreads / 32 - 1)) != warp) continue;
+    for (int x0 = 0; x0 < g; x0 += B) {
+      const bool mine = owner == warp;
+      owner = owner + 1 == nwarps ? 0 : owner + 1;
+      if (!mine) continue;
       const int hx = min(B, g - x0);
       float sum = 0.f;
       for (int xx = lane; xx < hx; xx += 32) {
@@ -503,36 +293,103 @@ ingest_kernel(const T* __restrict__ frames, const float* __restrict__ refs,
       if (lane == 0) best = fmaxf(best, sum / static_cast<float>(hy * hx));
     }
   }
-  best = block_max(best);
+  best = block_max_all(best, tid, nthreads);
   if (tid == 0) score[s] = best;
 }
 
+// One model element (nearest: the source element; box: its bucket's mean)
+// of output row i.
 template <typename T>
-int launch_ingest(const void* frames, const void* refs, void* model,
-                  void* gate, void* score, int S, const IngestGeo& G,
-                  int smem, cudaStream_t st) {
+__device__ __forceinline__ float model_elem(const T* frame, int rowC, int i,
+                                            int o0, int o1,
+                                            const IngestGeo& G, bool box) {
+  const int y0 = i * G.H / G.m;
+  if (!box) return norm32(frame + y0 * rowC, o0, G.scale);
+  return box_mean(frame, rowC, y0, (i + 1) * G.H / G.m, o0, o1, G.C,
+                  G.scale);
+}
+
+// grid (S, 1 + ceil(m / (blockDim.y * rows)), chunks), block (tx, ty).
+// blockIdx.y 0 is stream blockIdx.x's gate block (chunk 0 only); in the
+// others thread (x, y) holds one 16-byte unit (or one element) of `rows`
+// consecutive model rows, G.rows <= kMaxRows: it loads all of them before
+// it stores any.  tab holds the column maps: for model element e its first
+// source element (and, for box, its bucket's end), then the gate's source
+// column of each gate pixel (and one past).  No thread waits on another
+// outside the gate blocks, and the gate blocks, first in the grid, run
+// beside the model rows.
+template <typename T>
+__global__ void __launch_bounds__(512)
+ingest_kernel(const T* __restrict__ frames, const float* __restrict__ refs,
+              const int* __restrict__ tab, float* __restrict__ model,
+              float* __restrict__ gate, float* __restrict__ score,
+              IngestGeo G) {
+  extern __shared__ float dmap[];                   // g * g, gate blocks
+  const int s = blockIdx.x;
+  const int C = G.C, m = G.m, rowC = G.W * C, mC = m * C;
+  const bool box = G.method != kNearest;
+  const T* frame = frames + static_cast<long long>(s) * G.H * rowC;
+  const int* me0 = tab;
+  const int* me1 = tab + mC;                        // box only
+  if (blockIdx.y == 0) {
+    if (blockIdx.z == 0)
+      gate_block(frame, refs, tab + (box ? 2 : 1) * mC, gate, score, dmap,
+                 G, s);
+    return;
+  }
+  const int i0 = ((blockIdx.y - 1) * blockDim.y + threadIdx.y) * G.rows;
+  const int u = blockIdx.z * blockDim.x + threadIdx.x;
+  float* out = model + (static_cast<long long>(s) * m + i0) * mC;
+  if (!(G.flags & kModelVec)) {
+    if (u >= mC) return;
+    const int o0 = __ldg(me0 + u), o1 = box ? __ldg(me1 + u) : 0;
+    float v[kMaxRows];
+#pragma unroll
+    for (int k = 0; k < kMaxRows; ++k)
+      if (k < G.rows && i0 + k < m)
+        v[k] = model_elem(frame, rowC, i0 + k, o0, o1, G, box);
+#pragma unroll
+    for (int k = 0; k < kMaxRows; ++k)
+      if (k < G.rows && i0 + k < m) out[k * mC + u] = v[k];
+    return;
+  }
+  const int e = u * 4;
+  if (e >= mC) return;
+  const int4 o = __ldg(reinterpret_cast<const int4*>(me0 + e));
+  const int4 p = box ? __ldg(reinterpret_cast<const int4*>(me1 + e)) : o;
+  float4 v[kMaxRows];
+#pragma unroll
+  for (int k = 0; k < kMaxRows; ++k) {
+    if (k >= G.rows || i0 + k >= m) break;
+    v[k] = make_float4(model_elem(frame, rowC, i0 + k, o.x, p.x, G, box),
+                       model_elem(frame, rowC, i0 + k, o.y, p.y, G, box),
+                       model_elem(frame, rowC, i0 + k, o.z, p.z, G, box),
+                       model_elem(frame, rowC, i0 + k, o.w, p.w, G, box));
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxRows; ++k) {
+    if (k >= G.rows || i0 + k >= m) break;
+    *reinterpret_cast<float4*>(out + k * mC + e) = v[k];
+  }
+}
+
+template <typename T>
+int launch_ingest(const void* frames, const void* refs, const int* tab,
+                  void* model, void* gate, void* score, int S, int tx,
+                  int ty, int chunks, const IngestGeo& G, cudaStream_t st) {
   auto kernel = ingest_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(G.ranks, S, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G.ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(frames),
-                         static_cast<const float*>(refs),
-                         static_cast<float*>(model),
-                         static_cast<float*>(gate),
-                         static_cast<float*>(score), G);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = G.g * G.g * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int group = ty * G.rows;                  // model rows a block
+  const dim3 grid(S, 1 + (G.m + group - 1) / group, chunks);
+  kernel<<<grid, dim3(tx, ty), static_cast<size_t>(smem), st>>>(
+      static_cast<const T*>(frames), static_cast<const float*>(refs), tab,
+      static_cast<float*>(model), static_cast<float*>(gate),
+      static_cast<float*>(score), G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -669,32 +526,24 @@ int vo_downscale(const void* frames, void* out, int S, int H, int W, int C,
   return static_cast<int>(cudaGetLastError());
 }
 
-int vo_ingest(const void* frames, const void* refs, void* model, void* gate,
-              void* score, int S, int H, int W, int C, int m, int g,
-              int block, int is_u8, int method, float scale, int ranks,
-              int rows, int stages, int slot_bytes, int flags, int smem,
+int vo_ingest(const void* frames, const void* refs, const void* tab,
+              void* model, void* gate, void* score, int S, int H, int W,
+              int C, int m, int g, int block, int is_u8, int method,
+              float scale, int rows, int tx, int ty, int chunks, int flags,
               void* stream) {
-  const IngestGeo G{H, W, C, m, g, block, ranks, rows, stages, slot_bytes,
-                    flags, method, scale};
-  if (ranks < 1 || ranks > kMaxRanks || rows < 1 || stages < 2 ||
-      stages > kMaxStages ||
-      S < 1 || S > 65535 || C < 1 || C > kMaxC || block < 1 ||
-      ingest_layout(G).total > smem)
+  const IngestGeo G{H, W, C, m, g, block, rows, flags, method, scale};
+  if (S < 1 || C < 1 || C > kMaxC || block < 1 || rows < 1 ||
+      rows > kMaxRows || tx < 32 || tx % 32 != 0 || ty < 1 ||
+      tx * ty > 512 || chunks < 1 || chunks > 65535 ||
+      1 + (m + ty * rows - 1) / (ty * rows) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(tab);
   if (is_u8)
-    return launch_ingest<uint8_t>(frames, refs, model, gate, score, S, G,
-                                  smem, st);
-  return launch_ingest<float>(frames, refs, model, gate, score, S, G, smem,
-                              st);
-}
-
-// the dynamic shared memory vo_ingest needs (ingest_plan's mirror)
-int vo_ingest_smem(int H, int m, int g, int C, int ranks, int rows,
-                   int stages, int slot_bytes, int method) {
-  const IngestGeo G{H, 0, C, m, g, 1, ranks, rows, stages, slot_bytes, 0,
-                    method, 1.f};
-  return ingest_layout(G).total;
+    return launch_ingest<uint8_t>(frames, refs, t, model, gate, score, S,
+                                  tx, ty, chunks, G, st);
+  return launch_ingest<float>(frames, refs, t, model, gate, score, S, tx,
+                              ty, chunks, G, st);
 }
 
 int vo_block_sad(const void* refs, const void* frames, void* score, int S,

@@ -30,19 +30,17 @@ resample needs: for nearest only the sampled rows x columns (the union over
 the model and gate outputs for ingest), for box the whole H*W frame.
 
   ingest_frame   S*P*C*in_bytes + 2*S*g*g*C*4 + S*m*m*C*4 + 4*S bytes.
-                 Design: one launch, grid (R, S), a thread block cluster of
-                 R blocks per stream (:func:`ingest_plan`).  Block r owns a
-                 band of model rows and a band of gate rows, streams the
-                 source rows they need through a ring of shared-memory
-                 slots with 16-byte ``cp.async`` copies, and writes model
-                 rows as 16-byte vectors.  Each block stores its rows of
-                 the |gate-ref| map into rank 0's shared memory; rank 0
-                 reduces the tiles after a cluster barrier.  The frame does
-                 not fit in a block's shared memory, so the TPU's
-                 whole-frame-in-VMEM layout is not copied; the gate frame is
-                 never read back from device memory.
-                 :func:`ingest_banded_plain` is that arithmetic in plain
-                 PyTorch, band by band.
+                 Design: one launch (:func:`ingest_plan`): a gate block per
+                 stream (the gate frame, its |gate-ref| map in shared
+                 memory, the tile reduction; the gate frame is never read
+                 back from device memory) beside blocks of model rows, a
+                 thread holding 16 bytes of several rows, their loads in
+                 flight together, gathering through column maps tabulated
+                 once per shape (:func:`ingest_tables`).
+                 The frame does not fit in a block's shared memory, so the
+                 TPU's whole-frame-in-VMEM layout is not copied.
+                 :func:`ingest_blocks_plain` is the kernel's arithmetic in
+                 plain PyTorch.
   scatter_admit  S*(m*m*C*(4 + pool_bytes) + 2*g*g*C*4) + S bytes: each
                  row reads only the input it selects.  Design: grid (X, S)
                  (:func:`scatter_plan`); a block reads ``admit[s]`` once and
@@ -72,17 +70,14 @@ SHARED_BYTES = 48 * 1024       # static-launch shared memory per block
 # dynamic shared memory a block may take on the H100 (227 KB), less room
 # for the static shared memory beside it
 SMEM_MAX = 227 * 1024 - 1024
-THREADS = 256                  # csrc kThreads
-MAX_RANKS = 8                  # csrc kMaxRanks: the portable cluster size
-INGEST_RANKS = 8               # ingest blocks (cluster ranks) per stream
-MAX_STAGES = 8                 # csrc kMaxStages: ring stages per block
-ROWS_PER_STAGE = 8             # source rows a ring stage holds, at most
-RING_BYTES = 96 * 1024         # the ring's share of a block's shared memory
+THREADS = 256                  # csrc kThreads (the scatter's blocks)
+ROWS_PER_THREAD = 4            # model rows an ingest thread holds
+MAX_ROWS_PER_THREAD = 4        # csrc kMaxRows
+GATE_THREADS = 256             # an ingest block's threads, at least
+INGEST_TX = 256                # most threads across one model row
 SCATTER_UNROLL = 4             # csrc kUnroll: 16-byte copies a thread
-SMS = 132                      # H100 SXM streaming multiprocessors
-# vector-path flags (csrc kSrcVec, kModelVec, kRefsVec; kBatchRowVec,
-# kRefsRowVec)
-_SRC_VEC, _MODEL_VEC, _REFS_VEC = 1, 2, 4
+# vector-path flags (csrc kModelVec; kBatchRowVec, kRefsRowVec)
+_MODEL_VEC = 1
 _BATCH_ROW_VEC, _REFS_ROW_VEC = 1, 2
 _INT_MAX = 2 ** 31 - 1
 # the uint8 normalization factor, rounded to fp32 once so the plain version
@@ -102,9 +97,8 @@ def reset_launches() -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "vo_downscale": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    "vo_ingest": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _F, _I, _I, _I, _I, _I, _I, _P),
-    "vo_ingest_smem": (_I, _I, _I, _I, _I, _I, _I, _I, _I),
+    "vo_ingest": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _F, _I, _I, _I, _I, _I, _P),
     "vo_block_sad": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vo_scatter_admit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _P),
@@ -185,66 +179,70 @@ def _check_shared(h: int, w: int, block: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _r16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _bands(n: int, ranks: int) -> List[Tuple[int, int]]:
-    """Rows [r*n/R, (r+1)*n/R) of each rank r, as the kernel splits them."""
-    return [(r * n // ranks, (r + 1) * n // ranks) for r in range(ranks)]
-
-
 def ingest_plan(S: int, H: int, W: int, C: int, m: int, g: int, block: int,
-                *, method: str = "nearest", dtype=torch.float32,
-                ranks: int = None) -> dict:
-    """The ``ingest_frame`` launch: grid (R, S) in clusters of (R, 1, 1),
-    ``THREADS`` a block; the model and gate rows each rank owns and the
-    most source rows a rank streams (``jobs_max``); the ring (``stages``
-    stages of ``rows`` slots of ``slot_bytes``, one source row a slot:
-    a block waits once a stage, not once a row); the dynamic shared
-    memory (csrc ``ingest_layout``: ring, |gate-ref| map, the block's refs
-    rows, the job table, the column maps, box sums); and the vector-path
-    flags that row widths allow (the wrapper also needs 16-byte aligned
-    base pointers).  Raises where a block's shared memory or 32-bit
-    indexing would not hold the shapes."""
-    R = INGEST_RANKS if ranks is None else ranks
-    if not 1 <= R <= MAX_RANKS:
-        raise ValueError(f"ranks must be in 1..{MAX_RANKS}, got {R}")
+                *, rows: int = None) -> dict:
+    """The ``ingest_frame`` launch: grid (S, 1 + ceil(m / (ty * rows)),
+    chunks), blocks of (tx, ty) threads, at least ``GATE_THREADS``.
+    blockIdx.y 0 is each stream's gate block; in every other block thread
+    (x, y) holds one 16-byte unit of ``rows`` consecutive model rows
+    (``model_rows`` lists each block's) where rows are 16-byte multiples
+    (``model_vec``), else one element; ``chunks`` blocks cover a row wider
+    than ``INGEST_TX`` units.  Dynamic shared memory: the gate block's
+    g x g map.  Raises where the card's grid, a block's shared memory or
+    32-bit indexing would not hold the shapes."""
+    rows = ROWS_PER_THREAD if rows is None else rows
+    if not 1 <= rows <= MAX_ROWS_PER_THREAD:
+        raise ValueError(f"rows must be in 1..{MAX_ROWS_PER_THREAD}, got "
+                         f"{rows}")
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
-    if S > 65535:
-        raise ValueError(f"at most 65535 streams a launch, got {S}")
-    if max(H * W * C, (max(m, g) + 1) * max(H, W)) > _INT_MAX:
+    if max(H * W * C, (max(m, g) + 1) * max(H, W) * C) > _INT_MAX:
         raise ValueError(f"frames ({H}, {W}, {C}) at resolutions {m}/{g} "
                          f"overflow the kernel's 32-bit indexing")
-    item = 1 if dtype == torch.uint8 else 4
-    row = W * C * item
-    slot = _r16(row)
-    rows = max(1, min(ROWS_PER_STAGE, RING_BYTES // (2 * slot)))
-    stages = min(MAX_STAGES, max(2, RING_BYTES // (rows * slot)))
-    box = method != "nearest"
-    band = -(-g // R)
-    model_rows, gate_rows = _bands(m, R), _bands(g, R)
-
-    def jobs(lo, hi, res):          # source rows a band streams
-        return hi * H // res - lo * H // res if box else hi - lo
-    jobs_max = max(jobs(*mr, m) + jobs(*gr, g)
-                   for mr, gr in zip(model_rows, gate_rows))
-    smem = (stages * rows * slot + _r16(g * g * 4) + _r16(band * g * C * 4)
-            + 16 * jobs_max + _r16(m * C * 4) * (2 if box else 1)
-            + _r16((g + 1) * 4) + (_r16((m + g) * C * 4) if box else 0))
+    model_vec = (m * C) % 4 == 0
+    units = m * C // 4 if model_vec else m * C
+    tx = min(INGEST_TX, -(-units // 32) * 32)
+    ty = -(-GATE_THREADS // tx)
+    chunks = -(-units // tx)
+    group = ty * rows
+    groups = -(-m // group)
+    smem = g * g * 4
     if smem > SMEM_MAX:
-        raise ValueError(f"ingest at ({H}, {W}, {C}) -> {m}/{g} needs {smem} "
-                         f"bytes of shared memory a block, over {SMEM_MAX}")
-    src_vec, model_vec, refs_vec = (row % 16 == 0, (m * C) % 4 == 0,
-                                    (g * C) % 4 == 0)
-    return dict(
-        ranks=R, cluster=(R, 1, 1), grid=(R, S), blocks=R * S,
-        threads=THREADS, model_rows=model_rows, gate_rows=gate_rows,
-        jobs_max=jobs_max, rows=rows, stages=stages, slot_bytes=slot, smem=smem, src_vec=src_vec,
-        model_vec=model_vec, refs_vec=refs_vec,
-        flags=(_SRC_VEC * src_vec) | (_MODEL_VEC * model_vec)
-        | (_REFS_VEC * refs_vec))
+        raise ValueError(f"a {g}x{g} score map needs {smem} bytes of shared "
+                         f"memory, over {SMEM_MAX}")
+    if 1 + groups > 65535 or chunks > 65535:
+        raise ValueError(f"{m} model rows of {units} units overflow the grid")
+    return dict(grid=(S, 1 + groups, chunks), block=(tx, ty),
+                threads=tx * ty, blocks=S * (1 + groups) * chunks,
+                rows=rows, chunks=chunks, units=units,
+                model_rows=[(r * group, min(m, (r + 1) * group))
+                            for r in range(groups)],
+                smem=smem, model_vec=model_vec,
+                flags=_MODEL_VEC * model_vec)
+
+
+def ingest_tables(W: int, C: int, m: int, g: int,
+                  method: str = "nearest") -> torch.Tensor:
+    """The ingest kernel's column maps, int32: for each model element e (of
+    m * C) the offset of its first source element in a source row, for box
+    also the end of its bucket, then each gate pixel's source column
+    (g + 1 entries: box reads [gx[j], gx[j+1]))."""
+    c = torch.arange(C)
+
+    def elems(x):                    # pixel columns -> element offsets
+        return (x[:, None] * C + c).reshape(-1)
+    j = torch.arange(m)
+    parts = [elems(j * W // m)]
+    if method == "box":
+        parts.append(elems((j + 1) * W // m))
+    parts.append(torch.arange(g + 1) * W // g)
+    return torch.cat(parts).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(W: int, C: int, m: int, g: int, method: str,
+                   device: torch.device) -> torch.Tensor:
+    return ingest_tables(W, C, m, g, method).to(device)
 
 
 def _chunks(units: int, parts: int) -> List[Tuple[int, int]]:
@@ -348,20 +346,18 @@ def ingest_frame_plain(frames: torch.Tensor, refs: torch.Tensor, *,
     return model, gate, block_sad_plain(refs, gate, block)
 
 
-def _band_rows(x: torch.Tensor, lo: int, hi: int, res: int,
-               method: str) -> torch.Tensor:
-    """Output rows [lo, hi) of x (S, H, W, C, fp32) resampled to res, in
-    the kernel's arithmetic: nearest gathers; box adds each bucket's
-    elements one at a time in (row, column) order, then divides by the
-    bucket's size."""
+def _resample_rows(x: torch.Tensor, res: int, method: str) -> torch.Tensor:
+    """x (S, H, W, C, fp32) resampled to res x res in the kernel's
+    arithmetic: nearest gathers; box adds each bucket's elements one at a
+    time, row by row, left to right, then divides by the bucket's size."""
     S, H, W, C = x.shape
     xs = torch.arange(res, device=x.device) * W // res
     if method == "nearest":
-        ys = torch.arange(lo, hi, device=x.device) * H // res
+        ys = torch.arange(res, device=x.device) * H // res
         return x[:, ys][:, :, xs]
     wid = (torch.arange(1, res + 1, device=x.device) * W // res) - xs
     rows = []
-    for i in range(lo, hi):
+    for i in range(res):
         y0, y1 = i * H // res, (i + 1) * H // res
         acc = x.new_zeros((S, res, C))
         for y in range(y0, y1):
@@ -370,13 +366,13 @@ def _band_rows(x: torch.Tensor, lo: int, hi: int, res: int,
                 acc = torch.where((k < wid)[None, :, None],
                                   acc + x[:, y, col], acc)
         rows.append(acc / ((y1 - y0) * wid).to(torch.float32)[None, :, None])
-    return torch.stack(rows, dim=1) if rows else x.new_empty((S, 0, res, C))
+    return torch.stack(rows, dim=1)
 
 
 def _tile_max(d: torch.Tensor, block: int) -> torch.Tensor:
-    """Rank 0's reduction of the (S, g, g) map: per tile, lane l of a warp
-    sums the tile's columns l, l+32, ... top to bottom, a fixed tree of
-    shuffles adds the 32 lanes, the sum is divided by the tile's valid
+    """The gate block's reduction of the (S, g, g) map: per tile, lane l of
+    a warp sums the tile's columns l, l+32, ... top to bottom, a fixed tree
+    of shuffles adds the 32 lanes, the sum is divided by the tile's valid
     pixels; the max over tiles.  (S,) fp32."""
     S, g, _ = d.shape
     best = d.new_full((S,), float("-inf"))
@@ -396,38 +392,29 @@ def _tile_max(d: torch.Tensor, block: int) -> torch.Tensor:
     return best
 
 
-def ingest_banded_plain(frames: torch.Tensor, refs: torch.Tensor, *,
+def ingest_blocks_plain(frames: torch.Tensor, refs: torch.Tensor, *,
                         model_res: int, gate_res: int, block: int = 8,
-                        method: str = "nearest", ranks: int = None):
-    """``ingest_frame``'s kernel arithmetic in plain PyTorch, band by band
-    as :func:`ingest_plan` splits the rows over a cluster: each rank's
-    model and gate rows, its rows of the channel-mean |gate - ref| map,
-    then rank 0's tile reduction (:func:`_tile_max`).  Nearest frames
-    equal :func:`ingest_frame_plain`'s bitwise; box frames and the score
-    sum in the kernel's order instead of the einsum's.  Every division is
-    by a tensor: PyTorch divides a CUDA tensor by a Python number as a
-    product with its reciprocal, which rounds differently."""
-    S, H, W, C = frames.shape
-    m, g = model_res, gate_res
-    plan = ingest_plan(S, H, W, C, m, g, block, method=method,
-                       dtype=frames.dtype, ranks=ranks)
+                        method: str = "nearest"):
+    """``ingest_frame``'s kernel arithmetic in plain PyTorch: the model rows
+    as the model blocks compute them; the gate block's frame, its
+    channel-mean |gate - ref| map and its tile reduction
+    (:func:`_tile_max`).  Nearest frames equal
+    :func:`ingest_frame_plain`'s bitwise; box frames and the score sum in
+    the kernel's order instead of the einsum's.  Every division is by a
+    tensor: PyTorch divides a CUDA tensor by a Python number as a product
+    with its reciprocal, which rounds differently."""
+    C = frames.shape[3]
     x = normalize_plain(frames)
-    model = x.new_empty((S, m, m, C))
-    gate = x.new_empty((S, g, g, C))
-    d = x.new_empty((S, g, g))
-    for (m_lo, m_hi), (g_lo, g_hi) in zip(plan["model_rows"],
-                                          plan["gate_rows"]):
-        model[:, m_lo:m_hi] = _band_rows(x, m_lo, m_hi, m, method)
-        band = _band_rows(x, g_lo, g_hi, g, method)
-        gate[:, g_lo:g_hi] = band
-        diff = x.new_zeros((S, g_hi - g_lo, g))
-        for c in range(C):
-            diff = diff + (band[..., c] - refs[:, g_lo:g_hi, :, c]).abs()
-        d[:, g_lo:g_hi] = diff / torch.full_like(diff, float(C))
+    model = _resample_rows(x, model_res, method)
+    gate = _resample_rows(x, gate_res, method)
+    diff = x.new_zeros(gate.shape[:3])
+    for c in range(C):
+        diff = diff + (gate[..., c] - refs[..., c]).abs()
+    d = diff / torch.full_like(diff, float(C))
     return model, gate, _tile_max(d, block)
 
 
-def scatter_banded_plain(batch, model, refs, gate, admit):
+def scatter_blocks_plain(batch, model, refs, gate, admit):
     """``scatter_admit``'s kernel decomposition in plain PyTorch: every
     (block, stream) of :func:`scatter_plan`'s grid copies its chunk of the
     row, in 16-byte units or element by element, from the one source its
@@ -477,37 +464,20 @@ def ingest_frame(frames: torch.Tensor, refs: torch.Tensor, *, model_res: int,
         return ingest_frame_plain(frames, refs, model_res=model_res,
                                   gate_res=gate_res, block=block,
                                   method=method)
-    plan = ingest_plan(S, H, W, C, model_res, gate_res, block,
-                       method=method, dtype=frames.dtype)
+    plan = ingest_plan(S, H, W, C, model_res, gate_res, block)
     opts = dict(dtype=torch.float32, device=frames.device)
     model = torch.empty((S, model_res, model_res, C), **opts)
     gate = torch.empty((S, gate_res, gate_res, C), **opts)
     score = torch.empty((S,), **opts)
-    flags = plan["flags"]
-    if not _aligned(frames):
-        flags &= ~_SRC_VEC
-    if not _aligned(refs):
-        flags &= ~_REFS_VEC
+    tab = _device_tables(W, C, model_res, gate_res, method, frames.device)
     is_u8 = frames.dtype == torch.uint8
-    _launch("vo_ingest", frames.data_ptr(), refs.data_ptr(),
+    _launch("vo_ingest", frames.data_ptr(), refs.data_ptr(), tab.data_ptr(),
             model.data_ptr(), gate.data_ptr(), score.data_ptr(),
             S, H, W, C, model_res, gate_res, block, int(is_u8),
-            _METHOD_CODE[method], U8_SCALE if is_u8 else 1.0,
-            plan["ranks"], plan["rows"], plan["stages"], plan["slot_bytes"],
-            flags, plan["smem"], _stream(frames))
+            _METHOD_CODE[method], U8_SCALE if is_u8 else 1.0, plan["rows"],
+            *plan["block"], plan["chunks"], plan["flags"], _stream(frames))
     LAUNCHES["ingest_frame"] += 1
     return model, gate, score
-
-
-def ingest_smem_bytes(H: int, model_res: int, gate_res: int, C: int,
-                      ranks: int, rows: int, stages: int, slot_bytes: int,
-                      method: str) -> int:
-    """The kernel's own count of the dynamic shared memory ``ingest_frame``
-    launches with (csrc ``ingest_layout``); needs the built library, so a
-    card test can hold :func:`ingest_plan` against it."""
-    return int(_lib().vo_ingest_smem(H, model_res, gate_res, C, ranks, rows,
-                                     stages, slot_bytes,
-                                     _METHOD_CODE[method]))
 
 
 def downscale(frames: torch.Tensor, res: int, *,

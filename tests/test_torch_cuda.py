@@ -118,14 +118,14 @@ def _off16(x):
 
 def _ingest_agrees(frames, refs, **kw):
     """The kernel against plain (nearest frames bit-exact, the rest TIGHT),
-    and bitwise against ingest_banded_plain and a second call."""
+    and bitwise against ingest_blocks_plain and a second call."""
     got = tvo.ingest_frame(frames, refs, **kw)
     want = tvo.ingest_frame_plain(frames, refs, **kw)
     nearest = kw.get("method", "nearest") == "nearest"
     for i, (g, w) in enumerate(zip(got, want)):
         _close(g, w, exact=nearest and i < 2)
     again = tvo.ingest_frame(frames, refs, **kw)
-    for a, b, c in zip(got, tvo.ingest_banded_plain(frames, refs, **kw),
+    for a, b, c in zip(got, tvo.ingest_blocks_plain(frames, refs, **kw),
                        again):
         assert torch.equal(a, b) and torch.equal(a, c)
 
@@ -143,9 +143,10 @@ def test_ingest_kernel_at_tier_shapes(dev, res):
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["nearest", "box"])
 def test_ingest_kernel_scalar_paths(dev, method):
-    """Rows that are not 16-byte multiples (uint8 rows of 60 bytes, model
-    rows of 15*3 floats, refs rows of 13*3) and frames or refs that start
-    off a 16-byte boundary take the kernel's scalar paths."""
+    """Model rows that are not 16-byte multiples (15*3 floats) take the
+    kernel's element path; uint8 rows of 60 bytes, refs rows of 13*3
+    floats and frames or refs that start off a 16-byte boundary are read
+    as they are."""
     frames = _rand((3, 20, 20, 3), np.uint8, seed=23).to(dev)
     refs = _rand((3, 13, 13, 3), seed=24).to(dev)
     _ingest_agrees(frames, refs, model_res=15, gate_res=13, block=4,
@@ -157,33 +158,21 @@ def test_ingest_kernel_scalar_paths(dev, method):
 
 
 @pytest.mark.cuda
-def test_ingest_kernel_at_every_rank_count(dev, monkeypatch):
-    """1 to 8 blocks a stream (cluster sizes) give the same frames and the
-    same score bits: each tile is reduced whole by rank 0."""
+def test_ingest_kernel_at_every_rows_a_thread(dev, monkeypatch):
+    """1 to 4 model rows a thread, a last block of fewer rows, and rows
+    wider than a block's threads (two chunks a row) give the same frames
+    and score bits."""
     frames = _rand((4, 96, 96, 3), seed=27).to(dev)
     refs = _rand((4, 20, 20, 3), seed=28).to(dev)
-    kw = dict(model_res=72, gate_res=20, block=8)
-    first = None
-    for ranks in range(1, tvo.MAX_RANKS + 1):
-        monkeypatch.setattr(tvo, "INGEST_RANKS", ranks)
-        _ingest_agrees(frames, refs, **kw)
-        got = tvo.ingest_frame(frames, refs, **kw)
-        first = first or got
-        assert all(torch.equal(a, b) for a, b in zip(got, first))
-
-
-@pytest.mark.cuda
-def test_ingest_smem_mirror_matches_kernel(dev):
-    """ingest_plan's shared memory is the kernel's own count."""
-    for shape, m, g, method, dtype in (
-            ((256, 256, 3), 192, 32, "nearest", torch.float32),
-            ((256, 256, 3), 16, 32, "box", torch.uint8),
-            ((20, 20, 3), 15, 13, "box", torch.uint8),
-            ((1080, 1920, 3), 448, 64, "nearest", torch.float32)):
-        p = tvo.ingest_plan(8, *shape, m, g, 8, method=method, dtype=dtype)
-        assert p["smem"] == tvo.ingest_smem_bytes(
-            shape[0], m, g, shape[2], p["ranks"], p["rows"], p["stages"],
-            p["slot_bytes"], method)
+    for kw in (dict(model_res=72, gate_res=20, block=8),
+               dict(model_res=400, gate_res=20, block=8)):
+        first = None
+        for rows in range(1, tvo.MAX_ROWS_PER_THREAD + 1):
+            monkeypatch.setattr(tvo, "ROWS_PER_THREAD", rows)
+            _ingest_agrees(frames, refs, **kw)
+            got = tvo.ingest_frame(frames, refs, **kw)
+            first = first or got
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
 @pytest.mark.cuda
@@ -191,7 +180,7 @@ def test_ingest_smem_mirror_matches_kernel(dev):
                          ids=["f32", "bf16"])
 def test_scatter_kernel_rows_and_null_refs(dev, pool):
     """16-byte rows, the 1x1x3 null refs, 75-element rows and inputs off a
-    16-byte boundary: bit-exact to plain and to scatter_banded_plain, the
+    16-byte boundary: bit-exact to plain and to scatter_blocks_plain, the
     inputs untouched, two calls bitwise equal."""
     admit = torch.tensor([True, False, True, True], device=dev)
     for res, rshape in ((48, (32, 32, 3)), (16, (1, 1, 3)), (5, (7, 7, 3))):
@@ -204,7 +193,7 @@ def test_scatter_kernel_rows_and_null_refs(dev, pool):
             got = tvo.scatter_admit(b, mo, refs, gate, admit)
             for g, w, v, a in zip(
                     got, tvo.scatter_admit_plain(b, mo, refs, gate, admit),
-                    tvo.scatter_banded_plain(b, mo, refs, gate, admit),
+                    tvo.scatter_blocks_plain(b, mo, refs, gate, admit),
                     tvo.scatter_admit(b, mo, refs, gate, admit)):
                 assert torch.equal(g, w) and torch.equal(g, v)
                 assert torch.equal(g, a)

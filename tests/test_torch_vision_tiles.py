@@ -1,14 +1,15 @@
 """The ingest and scatter kernels' decomposition, on the CPU.
 
-``csrc/vision_ops.cu`` runs ``ingest_frame`` as one launch of R blocks a
-stream (a thread block cluster): each block resamples a band of model rows
-and a band of gate rows, writes its rows of the channel-mean |gate - ref|
-map into rank 0's shared memory, and rank 0 reduces the tiles in a fixed
-order.  ``scatter_admit`` runs X blocks a stream, each copying its chunk
-of the row in 16-byte units or element by element.
+``csrc/vision_ops.cu`` runs ``ingest_frame`` as one launch: a gate block
+per stream (the gate frame, its channel-mean |gate - ref| map in shared
+memory, the tiles reduced a warp a tile in a fixed order) beside blocks of
+model rows that gather through column maps tabulated once per shape.
+``scatter_admit`` runs X blocks a stream, each copying its chunk of the
+row in 16-byte units or element by element.
 ``kernels.vision_ops.ingest_plan`` / ``scatter_plan`` are the host mirrors
-of that geometry, and ``ingest_banded_plain`` / ``scatter_banded_plain``
-the kernels' arithmetic in plain PyTorch.  Here they are held against the
+of that geometry, ``ingest_tables`` the column maps, and
+``ingest_blocks_plain`` / ``scatter_blocks_plain`` the kernels'
+arithmetic in plain PyTorch.  Here they are held against the
 reference's goldens (``repro.kernels.ref``) and its Pallas kernels in
 interpret mode: nearest frames and the scatter bit-exact, box frames and
 scores within TIGHT (``tests/kernel_harness.py``).  Inputs come from numpy
@@ -45,35 +46,37 @@ def _np(shape, dtype=np.float32, seed=0):
     return rng.random(shape).astype(dtype)
 
 
-# (name, S, H, W, model_res, gate_res, block, dtype, method, ranks)
-BANDED = [
+# (name, S, H, W, model_res, gate_res, block, dtype, method)
+BLOCKS = [
     # the main path's geometry at a small S
-    ("main", 2, 256, 256, 192, 32, 8, np.float32, "nearest", None),
+    ("main", 2, 256, 256, 192, 32, 8, np.float32, "nearest"),
     # the tiers: model 48 / 32 / 16 under gate 32 (gate rows 8k of 256 are
     # not all among the model's source rows)
-    ("tier_48", 2, 256, 256, 48, 32, 8, np.float32, "nearest", None),
-    ("tier_32", 2, 256, 256, 32, 32, 8, np.uint8, "nearest", None),
-    ("tier_16", 2, 256, 256, 16, 32, 8, np.float32, "nearest", None),
+    ("tier_48", 2, 256, 256, 48, 32, 8, np.float32, "nearest"),
+    ("tier_32", 2, 256, 256, 32, 32, 8, np.uint8, "nearest"),
+    ("tier_16", 2, 256, 256, 16, 32, 8, np.float32, "nearest"),
     # box in both input types (g 20, block 8: partial edge tiles)
-    ("box_f32", 2, 64, 64, 48, 32, 8, np.float32, "box", 4),
-    ("box_u8", 2, 64, 64, 48, 20, 8, np.uint8, "box", None),
-    # a uint8 row of 60 bytes (the kernel's scalar path), box
-    ("u8_row60_box", 2, 20, 20, 16, 10, 4, np.uint8, "box", None),
-    # more ranks than the gate has tile rows (g 12, block 8: two)
-    ("ranks_over_tiles", 1, 48, 40, 24, 12, 8, np.float32, "nearest", 8),
+    ("box_f32", 2, 64, 64, 48, 32, 8, np.float32, "box"),
+    ("box_u8", 2, 64, 64, 48, 20, 8, np.uint8, "box"),
+    # a uint8 row of 60 bytes, model rows of 15 x 3 floats (the kernel's
+    # element path), box
+    ("u8_row60_box", 2, 20, 20, 15, 10, 4, np.uint8, "box"),
+    # a rectangular frame, more warps than tiles (g 12, block 8: four)
+    ("rect_few_tiles", 1, 48, 40, 24, 12, 8, np.float32, "nearest"),
 ]
 
 
-@pytest.mark.parametrize("case", BANDED, ids=[c[0] for c in BANDED])
-def test_banded_ingest_matches_reference(case):
-    """The band-by-band arithmetic against the golden and the Pallas
-    kernel in interpret mode: nearest frames bit-exact, box frames and the
-    score (summed per tile by lanes, then a fixed tree) within TIGHT."""
-    name, S, H, W, m, g, b, dt, method, ranks = case
+@pytest.mark.parametrize("case", BLOCKS, ids=[c[0] for c in BLOCKS])
+def test_blocks_ingest_matches_reference(case):
+    """The kernel's arithmetic against the golden and the Pallas kernel in
+    interpret mode: nearest frames bit-exact, box frames and the score
+    (summed per tile by lanes over columns, then a fixed tree) within
+    TIGHT."""
+    name, S, H, W, m, g, b, dt, method = case
     frames, refs = _np((S, H, W, 3), dt, seed=1), _np((S, g, g, 3), seed=2)
     kw = dict(model_res=m, gate_res=g, block=b, method=method)
-    got = tvo.ingest_banded_plain(torch.from_numpy(frames),
-                                  torch.from_numpy(refs), ranks=ranks, **kw)
+    got = tvo.ingest_blocks_plain(torch.from_numpy(frames),
+                                  torch.from_numpy(refs), **kw)
     pallas = jvo.ingest_frame(jnp.asarray(frames), jnp.asarray(refs),
                               interpret=True, **kw)
     golden = ref.ingest_frame_ref(jnp.asarray(frames), jnp.asarray(refs), **kw)
@@ -85,52 +88,54 @@ def test_banded_ingest_matches_reference(case):
         np.testing.assert_allclose(t, np.asarray(p), **tol)
 
 
-def test_banded_ingest_equals_plain_frames_at_every_rank_count():
-    """Nearest frames do not depend on how the rows are banded: at every R
-    they equal ``ingest_frame_plain``'s bitwise, and the score is the same
-    at every R (each tile is reduced whole by rank 0)."""
-    frames = torch.from_numpy(_np((2, 64, 64, 3), seed=3))
-    refs = torch.from_numpy(_np((2, 20, 20, 3), seed=4))
-    kw = dict(model_res=48, gate_res=20, block=8)
-    want = tvo.ingest_frame_plain(frames, refs, **kw)
-    scores = []
-    for ranks in range(1, tvo.MAX_RANKS + 1):
-        got = tvo.ingest_banded_plain(frames, refs, ranks=ranks, **kw)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        scores.append(got[2])
-    assert all(torch.equal(s, scores[0]) for s in scores)
-    torch.testing.assert_close(scores[0], want[2], **TIGHT)
+def test_ingest_tables_are_the_resampling_indices():
+    """The column maps the model blocks gather through: model element e of
+    pixel j, channel c starts at source element (j*W//m)*C + c (box: its
+    bucket ends at ((j+1)*W//m)*C + c); gate pixel j reads column j*W//g.
+    Nearest frames gathered through them equal ``ingest_frame_plain``'s."""
+    W, C, m, g = 53, 3, 24, 10
+    tab = tvo.ingest_tables(W, C, m, g, "box").numpy()
+    e = np.arange(m * C)
+    j, c = e // C, e % C
+    np.testing.assert_array_equal(tab[:m * C], (j * W // m) * C + c)
+    np.testing.assert_array_equal(tab[m * C:2 * m * C],
+                                  ((j + 1) * W // m) * C + c)
+    np.testing.assert_array_equal(tab[2 * m * C:], np.arange(g + 1) * W // g)
+    near = tvo.ingest_tables(W, C, m, g)
+    assert near.dtype == torch.int32 and near.numel() == m * C + g + 1
+    frames = torch.from_numpy(_np((2, 37, W, C), seed=3))
+    rows = frames[:, torch.arange(m) * 37 // m].reshape(2, m, W * C)
+    gathered = rows[:, :, near[:m * C].long()].reshape(2, m, m, C)
+    want = tvo.ingest_frame_plain(frames, torch.zeros(2, g, g, C),
+                                  model_res=m, gate_res=g)[0]
+    assert torch.equal(gathered, want)
 
 
 def test_ingest_plan_fits_the_card():
-    """The main path's launch: at least one block per SM in clusters of at
-    most 8 (the portable size), shared memory within a block's 227 KB, and
-    bands that tile the model and gate rows; the tiers' and a 1080p frame's
-    launches fit too.  The vector-path flags follow the row widths."""
+    """The main path's launch: a gate block a stream beside blocks of model
+    rows, a thread holding 16 bytes of four rows, well over one block per
+    SM, at least GATE_THREADS threads a block, shared memory within a
+    block's 227 KB; rows wider than INGEST_TX units take several chunks;
+    the vector path follows the model row's width."""
     p = tvo.ingest_plan(32, 256, 256, 3, 192, 32, 8)
-    assert p["blocks"] >= H100_SMS and p["grid"] == (8, 32)
-    assert p["cluster"] == (8, 1, 1) and p["cluster"][0] <= 8
-    assert p["smem"] <= H100_SMEM and p["rows"] == tvo.ROWS_PER_STAGE
-    assert p["stages"] * p["rows"] >= p["jobs_max"] == 24 + 4
-    assert p["model_rows"][0] == (0, 24) and p["gate_rows"][-1] == (28, 32)
-    assert p["src_vec"] and p["model_vec"] and p["refs_vec"]
+    assert p["block"] == (160, 2) and p["units"] == 144 and p["rows"] == 4
+    assert p["grid"] == (32, 1 + 192 // 8, 1) and p["blocks"] >= H100_SMS
+    assert p["smem"] == 32 * 32 * 4 <= H100_SMEM and p["model_vec"]
+    assert [r for lo, hi in p["model_rows"] for r in range(lo, hi)] == \
+        list(range(192))
     for res in (48, 32, 16):
-        q = tvo.ingest_plan(32, 256, 256, 3, res, 32, 8, dtype=torch.uint8)
-        assert q["smem"] <= H100_SMEM and q["slot_bytes"] == 768
-        rows = [r for lo, hi in q["model_rows"] for r in range(lo, hi)]
-        assert rows == list(range(res))
-    big = tvo.ingest_plan(4, 1080, 1920, 3, 448, 64, 8, method="box")
-    assert big["stages"] == 2 and big["smem"] <= tvo.SMEM_MAX
-    with pytest.raises(ValueError, match="shared memory"):
-        tvo.ingest_plan(1, 64, 64, 3, 48, 240, 8)
-    with pytest.raises(ValueError, match="ranks"):
-        tvo.ingest_plan(1, 64, 64, 3, 48, 32, 8, ranks=9)
-    # 16-byte copies where rows are 16-byte multiples: source rows of W*C
-    # elements, model rows of m*C floats, refs rows of g*C floats
-    p = tvo.ingest_plan(2, 20, 20, 3, 16, 10, 4, dtype=torch.uint8)
-    assert not p["src_vec"] and p["model_vec"] and not p["refs_vec"]
+        q = tvo.ingest_plan(32, 256, 256, 3, res, 32, 8, rows=1)
+        assert tvo.GATE_THREADS <= q["threads"] <= 512
+        assert q["grid"][1] == 1 + -(-res // q["block"][1])
+    assert tvo.ingest_plan(32, 256, 256, 3, 16, 32, 8)["block"] == (32, 8)
+    wide = tvo.ingest_plan(4, 1080, 1920, 3, 448, 64, 8)
+    assert wide["block"] == (256, 1) and wide["chunks"] == 2
+    assert not tvo.ingest_plan(1, 30, 30, 3, 15, 13, 8)["model_vec"]
     assert tvo.ingest_plan(1, 30, 30, 3, 15, 13, 8)["flags"] == 0
-    assert tvo.ingest_plan(1, 64, 64, 4, 48, 20, 8)["flags"] == 1 | 2 | 4
+    with pytest.raises(ValueError, match="shared memory"):
+        tvo.ingest_plan(1, 64, 64, 3, 48, 250, 8)
+    with pytest.raises(ValueError, match="rows"):
+        tvo.ingest_plan(1, 64, 64, 3, 48, 32, 8, rows=5)
 
 
 # (name, S, pool row shape, refs row shape, pool dtype, admit)
@@ -143,7 +148,7 @@ SCATTER = [
 
 
 @pytest.mark.parametrize("case", SCATTER, ids=[c[0] for c in SCATTER])
-def test_banded_scatter_matches_reference(case):
+def test_blocks_scatter_matches_reference(case):
     """Every block's chunk of every row, 16-byte units where the plan says
     so and elements where it does not (the 1x1x3 null refs, 75-element
     rows), assembles the golden's select bit-exact; the chunks tile each
@@ -164,7 +169,7 @@ def test_banded_scatter_matches_reference(case):
         chunks = tvo._chunks(units, plan["grid"][0])
         assert chunks[0][0] == 0 and chunks[-1][1] == units
         assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
-    got = tvo.scatter_banded_plain(
+    got = tvo.scatter_blocks_plain(
         torch.from_numpy(batch).to(pool), torch.from_numpy(model),
         torch.from_numpy(refs), torch.from_numpy(gate),
         torch.from_numpy(mask))

@@ -10,9 +10,10 @@ Runs the same main path as ``chip_smoke.py`` (``VisionServeEngine`` with
   1. with a ``SpanTracer`` on the engine's wall clock: host time per phase
      (``stage``, ``ingest``, ``forward``, ``commit``; ``ingest`` and
      ``forward`` end in a device sync, so they include the device work);
-  2. under ``torch.profiler``: device time per kernel and copy, summed,
-     and the device's busy share of the drain's wall time (one stream, so
-     the sum is the busy time).
+  2. under ``torch.profiler``: device time per kernel and copy, summed
+     (the twelve largest, and every kernel of the port's own), and the
+     device's busy share of the drain's wall time (one stream, so the sum
+     is the busy time).
 
 ``--src DIR`` profiles the package under ``DIR/src`` (another checkout,
 such as the parent's ``git archive``), so the parent and the change can be
@@ -122,10 +123,14 @@ def main(argv=None) -> int:
         return 1
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    # the port's own kernels (csrc's anonymous namespace), every one
+    port = {k: v for k, v in kernels.items()
+            if "(anonymous namespace)::" in k and "at::native" not in k}
 
     print(card, flush=True)
     print(json.dumps({
-        "card": card, "src": args.src, "ticks": ticks, "drain_ms": wall_s * 1e3,
+        "card": card, "src": args.src, "ticks": ticks,
+        "drain_ms": wall_s * 1e3,
         "ms_per_tick": wall_s * 1e3 / ticks,
         "host_phase_ms_per_tick": {k: v / ticks for k, v in
                                    sorted(phases.items())},
@@ -135,6 +140,8 @@ def main(argv=None) -> int:
         "device_busy_share": busy_ms / (prof_wall_s * 1e3),
         "device_ms_per_tick_by_kernel": {k[:90]: v / prof_ticks
                                          for k, v in top},
+        "port_kernel_ms_per_tick": {k[:90]: v / prof_ticks
+                                    for k, v in sorted(port.items())},
     }), flush=True)
     return 0
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The ingest kernel with one part of its row loop changed, on one card.
+"""The ingest kernel with one part changed or removed, on one card.
 
     python3 tools/torch_vision_ablate.py
 
@@ -15,9 +15,16 @@ bit-exact, the score within TIGHT); the others remove work to show what
 it costs, and are timed only:
 
 * ``base``: the source as it is;
-* ``no_store`` (timed only): the model rows' stores skipped;
-* ``no_copy`` (timed only): the source rows' copies into the ring skipped;
-* ``no_free`` (timed only): the barrier that frees a ring slot skipped.
+* ``plain_loads``: source elements read with plain loads, not through the
+  read-only cache (``__ldg``);
+* ``gate_batch2``: a gate thread loads 2 pixels at once, not 4;
+* ``regs_32``: at most 32 registers a thread (``__launch_bounds__(512,
+  4)``), for more resident blocks;
+* ``l2_256B``: fp32 source elements loaded with a 256-byte L2 prefetch;
+* ``stream_stores``: the model rows stored with ``__stcs`` (evict first);
+* ``no_gate`` (timed only): the gate blocks return at once;
+* ``gate_only`` (timed only): the model blocks return at once;
+* ``no_store`` (timed only): the model rows' stores skipped.
 
 A patch's anchor is a line of the source: when the source changes, the
 tool fails naming the anchor it no longer finds.  Needs a card.
@@ -33,20 +40,35 @@ from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_STORE = "            if (emit) *reinterpret_cast<float4*>(out + e) = v;\n"
-_COPY = "          cp_async16(dst + o, b + o, true);\n"
-_FREE = ("    __syncthreads();             // the slot is free for stage st + "
-         "stages\n")
+_STORE = "    *reinterpret_cast<float4*>(out + k * mC + e) = v[k];\n"
+_GATE = "    if (blockIdx.z == 0)\n      gate_block("
+_MODEL = "  const int u = blockIdx.z * blockDim.x + threadIdx.x;\n"
+_LDG = "  return __ldg(p + o);\n"
+
+_BATCH = "constexpr int kGateBatch = 4;"
+_BOUNDS = "__global__ void __launch_bounds__(512)\n"
+_L2 = """  return __ldg(p + o);\n"""
+_L2_256 = ("""  float v;\n"""
+           """  asm("ld.global.nc.L2::256B.f32 %0, [%1];" : "=f"(v) """
+           """: "l"(p + o));\n  return v;\n""")
 
 #: {variant: ({anchor: replacement}, held against plain)}
 VARIANTS = {
     "base": ({}, True),
-    "no_store": ({_STORE: "            if (emit && v.x == -1.f) "
-                          "*reinterpret_cast<float4*>(out + e) = v;\n"},
+    "plain_loads": ({_LDG: "  return p[o];\n"}, True),
+    "no_gate": ({_GATE: "    if (blockIdx.z == 0 && G.g < 0)\n"
+                        "      gate_block("}, False),
+    "gate_only": ({_MODEL: _MODEL + "  if (G.m > 0) return;\n"}, False),
+    "gate_batch2": ({_BATCH: "constexpr int kGateBatch = 2;"}, True),
+    "regs_32": ({_BOUNDS: "__global__ void __launch_bounds__(512, 4)\n"},
+                True),
+    "l2_256B": ({_L2: _L2_256}, True),
+    "stream_stores": ({_STORE: "    __stcs(reinterpret_cast<float4*>(out + "
+                               "k * mC + e), v[k]);\n"}, True),
+    "no_store": ({_STORE: "    if (v[k].x == -1.f) "
+                          "*reinterpret_cast<float4*>(out + k * mC + e) = "
+                          "v[k];\n"},
                  False),
-    "no_copy": ({_COPY: "          if (o < 0) cp_async16(dst + o, b + o, "
-                        "true);\n"}, False),
-    "no_free": ({_FREE: ""}, False),
 }
 
 

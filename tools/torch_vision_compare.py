@@ -20,10 +20,10 @@ each timing at ``chip_smoke.py`` phase 2's shapes, cold L2, the median of
   (32, 32, 32, 3)) and at the frugal tier (a (32, 16, 16, 3) bf16 pool).
 
 With ``--sweep``, each turn also times ``ingest_frame`` at the main path at
-2, 4 and 8 blocks a stream where the side's wrapper offers that setting.
-Every call is first held against the plain version (nearest frames and
-the scatter bit-exact, scores within TIGHT).  Prints one line per turn, a
-summary and the card's name and power limit.  Needs a card.
+1, 2 and 4 model rows a thread where the side's wrapper offers that
+setting.  Every call is first held against the plain version (nearest
+frames and the scatter bit-exact, scores within TIGHT).  Prints one line
+per turn, a summary and the card's name and power limit.  Needs a card.
 """
 from __future__ import annotations
 
@@ -59,10 +59,10 @@ def _turn(tree: str, sweep: bool) -> dict:
     for res, label in ((m, "main"), (16, "frugal")):
         kw = dict(model_res=res, gate_res=g, block=cs.BLOCK)
         want = vo.ingest_frame_plain(frames, refs, **kw)
-        for tag, value in settings(vo, "INGEST_RANKS", cs.RANK_SWEEP,
+        for tag, value in settings(vo, "ROWS_PER_THREAD", cs.ROWS_SWEEP,
                                    sweep and label == "main"):
             out[f"ingest_frame {label}{tag}"] = timed(
-                vo, "INGEST_RANKS", value,
+                vo, "ROWS_PER_THREAD", value,
                 lambda: vo.ingest_frame(frames, refs, **kw),
                 ingest_check(want))
     gate = rand(S, g, g, 3)
@@ -79,7 +79,7 @@ def _turn(tree: str, sweep: bool) -> dict:
 
 def main(argv=None) -> int:
     return compare(argv, "vision_ops", _turn,
-                   "also time ingest_frame at 2, 4 and 8 blocks a stream")
+                   "also time ingest_frame at 1, 2 and 4 model rows a thread")
 
 
 if __name__ == "__main__":

@@ -6,29 +6,21 @@
 ``ncu`` and ``nsys`` do not run where the card is, so this builds an
 instrumented copy of ``src/repro_torch/kernels/csrc/vision_ops.cu`` (under
 the git-ignored ``src/repro_torch/kernels/_build/probe_vision/``).  Thread
-0 of every block adds the SM cycles of each phase of ``ingest_kernel``
-in registers and writes the sums into a device array as it exits (no
-memory access inside the loop): the set-up (the job table, the column
-maps, the ring's first stages issued); per stage of the row loop, summed
-over the stages, the issue of the next stage's copies, the wait for this
-stage (its ``cp.async`` group and the barrier) and the barrier that frees
-its slot; per job, the model rows' and the gate rows' work; the cluster
-barriers (the wait before the first write to rank 0's map, the last
-sync); rank 0's tile reduction; ``%globaltimer`` at each block's start
-and end.  At the main path's shape (32 streams of 256 px fp32 -> 192 / 32)
-at 8, 4 and 2 blocks a stream, and at the frugal tier (model 16), it
-prints from one cold-L2 call each the kernel's span (first block start to
-last block end), when the blocks start (quantiles after the first: waves
-show as steps), the most clusters the card holds at once
-(``cudaOccupancyMaxActiveClusters``), and per phase the median and the
-largest over the blocks, in SM cycles.
+(0, 0) of every block records ``%globaltimer`` when the block starts and
+when it leaves, and in the gate blocks the SM cycles of the gate frame's
+pixels (the gate frame and the |gate - ref| map) and of the tile
+reduction.  At the main path's shape (32 streams of 256 px fp32 -> model
+192, gate 32) at 1, 2 and 4 model rows a thread, and at the frugal tier
+(model 16), it prints from one cold-L2 call each the kernel's span (first
+block start to last block end), when the model blocks start (quantiles
+after the first: waves show as steps) and how long one runs, when the gate
+blocks start and end, and their phases in SM cycles (median and max).
 
 The phase anchors are lines of the source: when the source changes, the
 probe fails naming the anchor it no longer finds.  Needs a card.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 import sys
 
@@ -36,12 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from torch_decode_probe import EXPORTS, build_instrumented  # noqa: E402
 
-N_STAMPS = 10
-MAX_BLOCKS = 1024
-PHASES = ("set-up", "wait for the stage", "model rows", "gate rows",
-          "issue next stage", "free the slot", "cluster barriers",
-          "rank 0 reduce")
-SPAN = 8                                   # stamp rows 8, 9: start, end
+N_STAMPS = 4                     # start, end (globaltimer); gate phases
+MAX_BLOCKS = 8192
 
 PRELUDE = '''
 __device__ unsigned long long g_probe[%d][%d];
@@ -50,71 +38,35 @@ __device__ __forceinline__ unsigned long long probe_gtime() {
   asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(t));
   return t;
 }
-#define PROBE_BLOCK (blockIdx.x + gridDim.x * blockIdx.y)
-#define ACC(k) do { const unsigned long long t_ = clock64(); \\
-  probe_acc[k] += t_ - probe_t; probe_t = t_; } while (0)
-#define GTIME(k) do { if (threadIdx.x == 0 && PROBE_BLOCK < %d) \\
+#define PROBE_BLOCK (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * \\
+                                               blockIdx.z))
+#define PROBE_MINE (threadIdx.x == 0 && threadIdx.y == 0 && \\
+                    PROBE_BLOCK < %d)
+#define GTIME(k) do { if (PROBE_MINE) \\
   g_probe[k][PROBE_BLOCK] = probe_gtime(); } while (0)
-#define FLUSH() do { if (threadIdx.x == 0 && PROBE_BLOCK < %d) { \\
-  _Pragma("unroll") for (int k_ = 0; k_ < %d; ++k_) \\
-    g_probe[k_][PROBE_BLOCK] = probe_acc[k_]; } } while (0)
-''' % (N_STAMPS, MAX_BLOCKS, MAX_BLOCKS, MAX_BLOCKS, SPAN)
-
-CLUSTERS = '''int probe_max_clusters(int ranks, int smem) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ranks, 32, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaFuncSetAttribute(ingest_kernel<float>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int n = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(
-      &n, ingest_kernel<float>, &cfg);
-  return e != cudaSuccess ? -static_cast<int>(e) : n;
-}
-'''
+#define CYCLES(k) do { const unsigned long long t_ = clock64(); \\
+  if (PROBE_MINE) g_probe[k][PROBE_BLOCK] = t_ - probe_t; probe_t = t_; \\
+  } while (0)
+struct ProbeEnd {
+  __device__ ~ProbeEnd() { GTIME(1); }
+};
+''' % (N_STAMPS, MAX_BLOCKS, MAX_BLOCKS)
 
 # (anchor, replacement): each anchor must occur once in vision_ops.cu
 PATCHES = (
-    ("  const IngestLayout L = ingest_layout(G);\n",
-     "  GTIME(%d);\n  unsigned long long probe_t = clock64();\n"
-     "  unsigned long long probe_acc[%d] = {};\n"
-     "  const IngestLayout L = ingest_layout(G);\n" % (SPAN, SPAN)),
-    ("  int rslot = 0, wslot = G.stages - 1;\n",
-     "  ACC(0);\n  int rslot = 0, wslot = G.stages - 1;\n"),
-    ("    cp_async_commit();\n    cp_async_wait_pending(G.stages - 1);"
-     "          // stage st's rows landed\n    __syncthreads();\n",
-     "    cp_async_commit();\n    ACC(4);\n"
-     "    cp_async_wait_pending(G.stages - 1);\n    __syncthreads();\n"
-     "    ACC(1);\n"),
-    ("        continue;\n      }\n      if (!started) {\n",
-     "        ACC(2);\n        continue;\n      }\n      if (!started) {\n"
-     "        ACC(3);\n"),
-    ("        started = true;\n",
-     "        started = true;\n        ACC(6);\n"),
-    ("        dmap0[jb.i * g + p] = sum / static_cast<float>(C);\n      }\n"
-     "    }\n",
-     "        dmap0[jb.i * g + p] = sum / static_cast<float>(C);\n      }\n"
-     "      ACC(3);\n    }\n"),
-    ("    __syncthreads();             // the slot is free for stage st + "
-     "stages\n",
-     "    __syncthreads();\n    ACC(5);\n"),
-    ("  cluster.sync();                // every rank's map rows have landed\n"
-     "  if (r != 0) return;\n",
-     "  cluster.sync();\n  ACC(6);\n"
-     "  if (r != 0) {\n    FLUSH();\n    GTIME(%d);\n    return;\n  }\n"
-     % (SPAN + 1)),
+    ("  extern __shared__ float dmap[];                   // g * g, gate "
+     "blocks\n",
+     "  extern __shared__ float dmap[];\n  GTIME(0);\n"
+     "  ProbeEnd probe_end;\n"),
+    ("  const long long base = static_cast<long long>(s) * g * g * C;\n",
+     "  const long long base = static_cast<long long>(s) * g * g * C;\n"
+     "  unsigned long long probe_t = clock64();\n"),
+    ("      dmap[p] = sum / static_cast<float>(C);\n    }\n  }\n"
+     "  __syncthreads();\n",
+     "      dmap[p] = sum / static_cast<float>(C);\n    }\n  }\n"
+     "  __syncthreads();\n  CYCLES(2);\n"),
     ("  if (tid == 0) score[s] = best;\n}\n",
-     "  if (tid == 0) score[s] = best;\n  ACC(7);\n  FLUSH();\n"
-     "  GTIME(%d);\n}\n"
-     % (SPAN + 1)),
+     "  if (tid == 0) score[s] = best;\n  CYCLES(3);\n}\n"),
 )
 
 
@@ -125,7 +77,7 @@ def instrument(src: str) -> str:
                              f"vision_ops.cu: {anchor!r}")
         src = src.replace(anchor, text)
     src = src.replace("namespace {\n", PRELUDE + "namespace {\n", 1)
-    return src.replace('extern "C" {\n', EXPORTS + CLUSTERS, 1)
+    return src.replace('extern "C" {\n', EXPORTS, 1)
 
 
 def main() -> int:
@@ -141,22 +93,25 @@ def main() -> int:
     from repro_torch.kernels import vision_ops as vo
 
     lib = build_instrumented(build, "vision_ops", instrument, "probe_vision")
-    lib.probe_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     S, H, g = cs.SLOTS, cs.FRAME_RES, cs.GATE_RES
     frames = torch.rand(S, H, H, 3, generator=gen, device=dev)
     refs = torch.rand(S, g, g, 3, generator=gen, device=dev)
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    for m, ranks in ((cs.INPUT_RES, 8), (cs.INPUT_RES, 4), (cs.INPUT_RES, 2),
-                     (16, 8)):
+    q = (0.25, 0.5, 0.75, 1.0)
+    for m, rows in ((cs.INPUT_RES, 1), (cs.INPUT_RES, 2), (cs.INPUT_RES, 4),
+                    (16, 1)):
         kw = dict(model_res=m, gate_res=g, block=cs.BLOCK)
-        vo.INGEST_RANKS = ranks
+        vo.ROWS_PER_THREAD = rows
         got = vo.ingest_frame(frames, refs, **kw)
         want = vo.ingest_frame_plain(frames, refs, **kw)
         cs.max_err(got[:2], want[:2], exact=True)
         cs.max_err(got[2], want[2])
         plan = vo.ingest_plan(S, H, H, 3, m, g, cs.BLOCK)
+        if plan["blocks"] > MAX_BLOCKS:
+            raise SystemExit(f"torch_vision_probe: {plan['blocks']} blocks, "
+                             f"over {MAX_BLOCKS} stamps")
         stamps = np.zeros((N_STAMPS, MAX_BLOCKS), dtype=np.uint64)
         flush.zero_()
         torch.cuda.synchronize()
@@ -165,19 +120,26 @@ def main() -> int:
         torch.cuda.synchronize()
         lib.probe_read(stamps.ctypes.data)
         st = stamps[:, :plan["blocks"]].astype(np.int64)
-        starts = (st[SPAN] - st[SPAN].min()) / 1e3
-        span = (st[SPAN + 1].max() - st[SPAN].min()) / 1e3
-        print(f"ingest {S} x {H} px -> {m}/{g}, {ranks} blocks a stream: "
-              f"{plan['blocks']} blocks, at most "
-              f"{lib.probe_max_clusters(ranks, plan['smem'])} clusters of "
-              f"{ranks} at once; span {span:.1f} us; block starts after "
-              f"the first (quantiles 0.25/0.5/0.75/1): "
-              + "/".join(f"{q:.1f}" for q in np.quantile(
-                  starts, (0.25, 0.5, 0.75, 1.0))) + " us", flush=True)
-        for k, name in enumerate(PHASES):
-            row = st[k] if k != 7 else st[k][st[k] > 0]
-            print(f"  {name:22s}: median {np.median(row):8.0f}  max "
-                  f"{row.max():8.0f} cycles", flush=True)
+        t0 = st[0].min()
+        start, end = (st[0] - t0) / 1e3, (st[1] - t0) / 1e3
+        # blocks in launch order: x (the stream) fastest, then y (0: gate)
+        X, Y, _ = plan["grid"]
+        idx = np.arange(plan["blocks"])
+        model = (idx // X) % Y != 0
+        gate = ~model & (idx < X * Y)
+        dur = end[model] - start[model]
+        print(f"ingest {S} x {H} px -> {m}/{g}, {rows} model rows a thread: "
+              f"grid {plan['grid']} of {plan['block']}; span "
+              f"{end.max():.1f} us; model blocks start after the first "
+              f"(quantiles {'/'.join(map(str, q))}): "
+              + "/".join(f"{v:.1f}" for v in np.quantile(start[model], q))
+              + f" us, each runs median {np.median(dur):.2f} max "
+              f"{dur.max():.2f} us; gate blocks start by "
+              f"{start[gate].max():.1f} us, end by {end[gate].max():.1f} us; "
+              f"gate pixels median {np.median(st[2][gate]):.0f} max "
+              f"{st[2][gate].max():.0f} cycles, tile reduction median "
+              f"{np.median(st[3][gate]):.0f} max {st[3][gate].max():.0f} "
+              f"cycles", flush=True)
     print(cs.card_line(), flush=True)
     return 0
 
