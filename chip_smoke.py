@@ -20,13 +20,19 @@ wall seconds):
                row of 60 bytes, bf16 pools, the 1x1 null refs, rows that
                are not 16-byte units); ``ingest_frame`` also bitwise equal
                to ``ingest_blocks_plain``, the kernel's arithmetic in plain
-               PyTorch.  Time kernel, plain version and, where one PyTorch
-               call computes the same function, that call, each with a
-               cold L2 (inputs come from HBM, as the bound assumes).  Then
-               kernels 1-2's grid, block, shared memory and registers
-               with a bitwise repeat, their times at the frugal tier
-               (model 16 into a bf16 pool), and ingest at 1, 2 and 4 model
-               rows a block, each setting held against plain first.
+               PyTorch; ``downscale`` (192 and 32 px, nearest and box, fp32
+               and uint8) bitwise equal to its model ``_resample_rows``
+               and to ``ingest_frame``'s model and gate frames;
+               ``block_sad`` bitwise equal to ``sad_blocks_plain`` and, on
+               ``ingest_frame``'s gate frame, to its score; every kernel
+               bitwise equal to a second call.  Time kernel, plain version
+               and, where one PyTorch call computes the same function,
+               that call, each with a cold L2 (inputs come from HBM, as
+               the bound assumes); ``downscale`` at 32 px too.  Then each
+               vision kernel's grid, block, shared memory and registers
+               with a bitwise repeat, kernels 1-2's times at the frugal
+               tier (model 16 into a bf16 pool), and ingest at 1, 2 and 4
+               model rows a block, each setting held against plain first.
   3. main path ``VisionServeEngine(use_kernels=True, slots=32,
                frame_res=256, input_res=192)`` with the motion gate on:
                16 outer + 16 inner dash-cam streams, 32 frames each,
@@ -37,7 +43,8 @@ wall seconds):
                printed.
   4. paths     the gateless kernel path (``downscale``) and the plain
                engine path with ``MotionGate(use_kernels=True)``
-               (``downscale`` + ``block_sad``), each with its own counts.
+               (``downscale`` + ``block_sad``), each with its own counts;
+               ``downscale``'s launches are the two paths' sum.
   5. card/CPU  the vision main path again on the CPU, same weights and
                frames: per-stream processed/gated/dropped counts and flags
                equal.
@@ -328,20 +335,53 @@ def check_kernels(torch, vo, dev):
           f"and -> {m}/20, tiers {TIER_RES}/{g}, uint8 20 px -> 16/10",
           flush=True)
 
-    # downscale: gateless (-> model res) and gate (-> gate res) shapes
+    # downscale: gateless (-> model res) and gate (-> gate res) shapes, the
+    # ingest's model rows alone: bitwise equal to its model, to a second
+    # call and to ingest_frame's frames at the same resolution.
+    # block_sad: the ingest's gate score alone: on ingest_frame's own gate
+    # frame, bitwise its score
     for f in (frames, frames_u8):
-        for res in (m, g):
-            max_err(vo.downscale(f, res), vo.downscale_plain(f, res),
-                    exact=True)
-            errs["downscale"] = max(errs["downscale"], max_err(
-                vo.downscale(f, res, method="box"),
-                vo.downscale_plain(f, res, method="box")))
+        x = vo.normalize_plain(f)
+        for method in ("nearest", "box"):
+            fused = vo.ingest_frame(f, refs, method=method, **kw)
+            for res, want in ((m, fused[0]), (g, fused[1])):
+                got = vo.downscale(f, res, method=method)
+                errs["downscale"] = max(errs["downscale"], max_err(
+                    got, vo.downscale_plain(f, res, method=method),
+                    exact=method == "nearest"))
+                for other, what in (
+                        (vo._resample_rows(x, res, method), "its model"),
+                        (vo.downscale(f, res, method=method), "a second call"),
+                        (want, "ingest_frame's frame")):
+                    if not torch.equal(got, other):
+                        fail(f"downscale {f.dtype} {method} -> {res}: not "
+                             f"bitwise equal to {what}")
+            if not torch.equal(vo.block_sad(refs, fused[1], BLOCK), fused[2]):
+                fail(f"block_sad on ingest_frame's gate frame ({f.dtype} "
+                     f"{method}) is not bitwise its score")
+    print(f"downscale: nearest bit-identical to plain, box within TIGHT, "
+          f"bitwise equal to _resample_rows, to a second call and to "
+          f"ingest_frame's frames, at S {S} 256 px fp32/uint8 nearest/box -> "
+          f"{m} and {g}; block_sad on ingest_frame's gate frames bitwise "
+          f"its scores", flush=True)
 
     # block_sad: gate shape, and partial edge blocks (20 and 30 with 8)
     for hw in (g, 20, 30):
         a, b = rand(S, hw, hw, 3), rand(S, hw, hw, 3)
+        got = vo.block_sad(a, b, BLOCK)
         errs["block_sad"] = max(errs["block_sad"], max_err(
-            vo.block_sad(a, b, BLOCK), vo.block_sad_plain(a, b, BLOCK)))
+            got, vo.block_sad_plain(a, b, BLOCK)))
+        if not (torch.equal(got, vo.sad_blocks_plain(a, b, BLOCK))
+                and torch.equal(got, vo.block_sad(a, b, BLOCK))):
+            fail(f"block_sad {hw} px: not bitwise equal to sad_blocks_plain "
+                 f"and a second call")
+    _, gate20, score20 = vo.ingest_frame(frames, refs20, model_res=m,
+                                         gate_res=20, block=BLOCK)
+    if not torch.equal(vo.block_sad(refs20, gate20, BLOCK), score20):
+        fail("block_sad on ingest_frame's 20 px gate frame is not bitwise "
+             "its score")
+    print(f"block_sad: within TIGHT of plain, bitwise equal to "
+          f"sad_blocks_plain and a second call at {g}/20/30 px", flush=True)
 
     # scatter_admit: f32 and bf16 pools, gated refs and the gateless (1x1),
     # the frugal tier's rows, a row of 75 elements (not 16-byte units)
@@ -414,6 +454,16 @@ def check_kernels(torch, vo, dev):
                                 torch.where(sel, gate, refs)))
     print(f"yardstick (cold L2): two torch.where for pool+refs "
           f"{where_ms:.4f} ms", flush=True)
+    # downscale at gate size (MotionGate.admit's shape)
+    ys_g = torch.arange(g, device=dev) * H // g
+    nbytes = (S * pixels_read(H, H, (g,), "nearest") * pix * f4
+              + S * g * g * pix * f4)
+    print(f"kernel downscale -> {g} (MotionGate.admit): cold L2: kernel "
+          f"{time_ms(lambda: vo.downscale(frames, g)):.4f} ms  plain "
+          f"{time_ms(lambda: vo.downscale_plain(frames, g)):.4f} ms  library "
+          f"{time_ms(lambda: frames[:, ys_g[:, None], ys_g[None, :]]):.4f} "
+          f"ms  bound {bound(nbytes, 0)[0] * 1e3:.2f} us "
+          f"({nbytes / 1e6:.3f} MB)", flush=True)
     vision_geometry(torch, vo, frames, refs, batch, model, gate, admit, kw)
     # the frugal tier: model 16 under gate 32 into a bf16 pool
     lo = 16
@@ -441,14 +491,14 @@ def vision_report(log: str) -> dict:
     """{(kernel, dtype): (registers, spill bytes)} of the vision_ops.cu
     kernels in an ``-Xptxas -v`` report."""
     pat = (r"Compiling entry function '\S*?(ingest_kernel|scatter_rows_kernel"
-           r"|resample_kernel|sad_kernel)(?:I(h|f|13__nv_bfloat16)E)?")
+           r"|downscale_kernel|score_kernel)(?:I(h|f|13__nv_bfloat16)E)?")
     names = {"h": "u8", "f": "f32", "13__nv_bfloat16": "bf16", None: "f32"}
     return ptxas_entries(log, pat, lambda m: (m.group(1), names[m.group(2)]))
 
 
 def vision_geometry(torch, vo, frames, refs, batch, model, gate, admit, kw):
-    """Print kernels 1-2's launch at the main path's shapes (grid, block,
-    shared memory, registers) and fail unless two calls are bitwise
+    """Print each vision kernel's launch at the main path's shapes (grid,
+    block, shared memory, registers) and fail unless two calls are bitwise
     equal."""
     S, H, W, C = frames.shape
     p = vo.ingest_plan(S, H, W, C, kw["model_res"], kw["gate_res"],
@@ -474,6 +524,26 @@ def vision_geometry(torch, vo, frames, refs, batch, model, gate, admit, kw):
           f"refs row, vector paths pool {q['batch_vec']} refs "
           f"{q['refs_vec']}, "
           f"{VISION_REGS.get(('scatter_rows_kernel', 'f32'))} (registers, B "
+          f"spilled); two calls bitwise equal", flush=True)
+    for res in (kw["model_res"], kw["gate_res"]):
+        d = vo.downscale_plan(S, H, W, C, res)
+        if not torch.equal(vo.downscale(frames, res), vo.downscale(frames,
+                                                                   res)):
+            fail(f"downscale -> {res}: two calls on the same inputs differ")
+        print(f"kernel downscale {tuple(frames.shape)} fp32 -> {res}: grid "
+              f"{d['grid']} = {d['blocks']} blocks of {d['block']} threads "
+              f"({d['rows']} rows a thread, {d['units']} 16-byte units a "
+              f"row), no shared memory, "
+              f"{VISION_REGS.get(('downscale_kernel', 'f32'))} (registers, B "
+              f"spilled); two calls bitwise equal", flush=True)
+    q = vo.sad_plan(S, kw["gate_res"], kw["gate_res"], C, kw["block"])
+    if not torch.equal(vo.block_sad(refs, gate, kw["block"]),
+                       vo.block_sad(refs, gate, kw["block"])):
+        fail("block_sad: two calls on the same inputs differ")
+    print(f"kernel block_sad {tuple(gate.shape)}: grid {q['grid']} = "
+          f"{q['blocks']} blocks of {q['threads']} threads, {q['tiles']} "
+          f"tiles a stream, {q['smem']} B dynamic shared memory, "
+          f"{VISION_REGS.get(('score_kernel', 'f32'))} (registers, B "
           f"spilled); two calls bitwise equal", flush=True)
 
 
@@ -1507,8 +1577,9 @@ def main() -> int:
                   f"spilled", flush=True)
     log = built["vision_ops"][0].with_suffix(".log")
     VISION_REGS.update(vision_report(log.read_text() if log.exists() else ""))
-    if ("ingest_kernel", "f32") not in VISION_REGS:
-        fail("no ingest kernel instance in the ptxas report")
+    for kernel in ("ingest_kernel", "downscale_kernel", "score_kernel"):
+        if (kernel, "f32") not in VISION_REGS:
+            fail(f"no {kernel} instance in the ptxas report")
     for (kernel, dt), (regs, spill) in sorted(VISION_REGS.items()):
         print(f"vision kernel {kernel} {dt}: {regs} registers, {spill} B "
               f"spilled", flush=True)
@@ -1600,8 +1671,10 @@ def main() -> int:
     drive(gated_plain, side)
     if vo.LAUNCHES["downscale"] == 0 or vo.LAUNCHES["block_sad"] == 0:
         fail(f"MotionGate.admit path launches {vo.LAUNCHES}")
+    rows["downscale"]["launches"] += vo.LAUNCHES["downscale"]
     rows["block_sad"]["launches"] = vo.LAUNCHES["block_sad"]
-    print(f"MotionGate.admit path: launches {dict(vo.LAUNCHES)}", flush=True)
+    print(f"MotionGate.admit path: launches {dict(vo.LAUNCHES)}; downscale "
+          f"on both paths {rows['downscale']['launches']}", flush=True)
 
     phase_done(4, "vision kernel paths")
 

@@ -4,32 +4,46 @@
 // kernels/vision_ops.py.  The TPU kernels hold one whole stream in VMEM and
 // resample with one-hot / box-weight matmuls on the MXU.  One 256x256x3 fp32
 // frame is 786 KB, more than the 227 KB of shared memory a Hopper block can
-// have, so these kernels do not copy that layout:
+// have, so these kernels do not copy that layout.  Two pieces of device
+// code carry all the resampling and all the scoring:
 //
-//   * ingest    — one launch, grid (S, 1 + m / rows, chunks).  A block
-//                 per stream computes the small gate frame, keeps the
-//                 channel-mean |gate - ref| in shared memory and reduces
-//                 the block x block tiles, a warp a tile in a fixed order,
-//                 to the max of the tile means (partial edge tiles average
-//                 their valid pixels only: pad-and-mask); no atomics, so
-//                 two calls give the same bits.  Every other block holds a
-//                 few model rows, one thread per 16 bytes of output: it
-//                 gathers its four source elements through a column map
-//                 the wrapper tabulates once (no index division per
-//                 element; all index arithmetic 32-bit) and writes one
-//                 float4.  No thread of a model block waits on another, so
-//                 the card keeps every row's loads in flight; the gate
-//                 blocks come first in the grid and run beside them.  Model
-//                 rows that are not 16-byte multiples are written element
-//                 by element.  (A cluster of blocks a stream streaming
-//                 source rows through a cp.async ring, its map gathered in
-//                 rank 0's shared memory, measured slower: PERF.md.)
-//   * resample  — a direct gather, one thread per output pixel and many
-//                 blocks per stream: nearest loads one source pixel, box
-//                 averages its bucket.  Normalization (x 1/255 for uint8)
-//                 happens on load, before resampling.  Nearest in fp32 is a
-//                 pure copy, so it is bit-identical to the plain gather.
-//   * sad       — the score half alone, on frames already at gate size.
+//   * model_rows  — a block of model rows, one thread per 16 bytes of
+//                   output: it gathers its four source elements through a
+//                   column map the wrapper tabulates once (no index
+//                   division per element; all index arithmetic 32-bit) for
+//                   up to four rows, every load issued before the first
+//                   store.  Rows that are not 16-byte multiples are written
+//                   element by element.
+//   * gate_score  — a block per stream: (a) build_map fills the channel-mean
+//                   |pixel - ref| map in shared memory, kGateBatch pixels
+//                   of both inputs in flight a thread, from one of two
+//                   sources (resampled from the source frame through the
+//                   gate's column table, or read from a frame already at
+//                   gate size); (b) tile_max reduces the block x block
+//                   tiles, a warp a tile in a fixed order, to the max of
+//                   the tile means (partial edge tiles average their valid
+//                   pixels only: pad-and-mask).  No atomics, so two calls
+//                   give the same bits.
+//
+// The launches:
+//
+//   * ingest    — one launch, grid (S, 1 + m / rows, chunks): blockIdx.y 0
+//                 is a stream's gate_score on the resampled source (it also
+//                 writes the gate frame), every other block model_rows.  No
+//                 thread of a model block waits on another, so the card
+//                 keeps every row's loads in flight; the gate blocks come
+//                 first in the grid and run beside them.  (A cluster of
+//                 blocks a stream streaming source rows through a cp.async
+//                 ring, its map gathered in rank 0's shared memory,
+//                 measured slower: PERF.md.)
+//   * downscale — the resample half alone: model_rows with no gate block,
+//                 grid (S, res / rows, chunks).  It is the ingest's code, so
+//                 its frames equal the ingest's bit for bit; normalization
+//                 (x 1/255 for uint8) happens on load, before resampling.
+//   * block_sad — the score half alone, on frames already at gate size:
+//                 gate_score reading the frame directly, one block a
+//                 stream.  On the ingest's own gate frame it gives the
+//                 ingest's score bit for bit.
 //   * scatter   — a masked row select into NEW output tensors (copy
 //                 semantics, like the reference), casting the model frame
 //                 to the pool dtype (round-to-nearest-even for bf16).
@@ -54,123 +68,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // a scatter block's threads
 constexpr int kMaxC = 4;          // channels per pixel the kernels accept
 constexpr int kNearest = 0;       // method codes (kernels/vision_ops.py)
-
-template <typename T>
-__device__ __forceinline__ float load_norm(const T* p, long long i,
-                                           float scale);
-
-template <>
-__device__ __forceinline__ float load_norm<float>(const float* p, long long i,
-                                                  float scale) {
-  return p[i] * scale;
-}
-
-template <>
-__device__ __forceinline__ float load_norm<uint8_t>(const uint8_t* p,
-                                                    long long i, float scale) {
-  return static_cast<float>(p[i]) * scale;
-}
-
-// One output pixel (i, j) of an (H, W, C) frame resampled to res x res.
-// Nearest takes source row i*H/res; box averages [i*H/res, (i+1)*H/res).
-template <typename T>
-__device__ __forceinline__ void resample_px(const T* frame, int H, int W,
-                                            int C, int res, int i, int j,
-                                            int method, float scale,
-                                            float* out) {
-  const int y0 = static_cast<int>(static_cast<long long>(i) * H / res);
-  const int x0 = static_cast<int>(static_cast<long long>(j) * W / res);
-  if (method == kNearest) {
-    const long long base = (static_cast<long long>(y0) * W + x0) * C;
-#pragma unroll
-    for (int c = 0; c < kMaxC; ++c)
-      if (c < C) out[c] = load_norm(frame, base + c, scale);
-    return;
-  }
-  const int y1 = static_cast<int>(static_cast<long long>(i + 1) * H / res);
-  const int x1 = static_cast<int>(static_cast<long long>(j + 1) * W / res);
-  float acc[kMaxC] = {0.f, 0.f, 0.f, 0.f};     // register-resident
-  for (int y = y0; y < y1; ++y) {
-    const long long row = static_cast<long long>(y) * W;
-    for (int x = x0; x < x1; ++x) {
-      const long long base = (row + x) * C;
-#pragma unroll
-      for (int c = 0; c < kMaxC; ++c)
-        if (c < C) acc[c] += load_norm(frame, base + c, scale);
-    }
-  }
-  const float cnt = static_cast<float>((y1 - y0) * (x1 - x0));
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) out[c] = acc[c] / cnt;
-}
-
-// Block-wide max of per-thread values; the result is valid in thread 0.
-__device__ __forceinline__ float block_max(float v) {
-  __shared__ float warp_max[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? warp_max[lane] : -INFINITY;
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
-
-// Max over block x block tiles of the tile mean of d (H x W, in shared
-// memory).  Edge tiles average their valid pixels only.  All threads of the
-// block call it; thread 0 writes *score.
-__device__ __forceinline__ void max_block_mean(const float* d, int H, int W,
-                                               int block, float* score) {
-  const int nbh = (H + block - 1) / block, nbw = (W + block - 1) / block;
-  float best = -INFINITY;
-  for (int b = threadIdx.x; b < nbh * nbw; b += blockDim.x) {
-    const int y0 = (b / nbw) * block, x0 = (b % nbw) * block;
-    const int y1 = min(y0 + block, H), x1 = min(x0 + block, W);
-    float sum = 0.f;
-    for (int y = y0; y < y1; ++y)
-      for (int x = x0; x < x1; ++x) sum += d[y * W + x];
-    best = fmaxf(best, sum / static_cast<float>((y1 - y0) * (x1 - x0)));
-  }
-  best = block_max(best);
-  if (threadIdx.x == 0) *score = best;
-}
-
-template <typename T>
-__global__ void resample_kernel(const T* __restrict__ frames,
-                                float* __restrict__ out, int S, int H, int W,
-                                int C, int res, int method, float scale) {
-  const long long n = static_cast<long long>(S) * res * res;
-  const long long frame_elems = static_cast<long long>(H) * W * C;
-  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       p < n; p += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int s = static_cast<int>(p / (res * res));
-    const int q = static_cast<int>(p % (res * res));
-    float v[kMaxC];
-    resample_px(frames + s * frame_elems, H, W, C, res, q / res, q % res,
-                method, scale, v);
-#pragma unroll
-    for (int c = 0; c < kMaxC; ++c)
-      if (c < C) out[p * C + c] = v[c];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// ingest: one launch; blocks of model rows, and a block a stream's gate
-// ---------------------------------------------------------------------------
-
 constexpr int kModelVec = 1;      // flags (kernels/vision_ops.py ingest_plan)
 constexpr int kMaxRows = 4;       // model rows a thread holds, at most
 constexpr int kGateBatch = 4;     // gate pixels a thread loads at once
+constexpr int kMaxBlock = 512;    // threads of an ingest, downscale or
+                                  // block_sad block, at most
 
-// What the wrapper's ingest_plan chose, passed by value.
+// What the wrapper's ingest_plan / downscale_plan chose, passed by value
+// (downscale: m is its resolution; g and block are unused).
 struct IngestGeo {
   int H, W, C, m, g, block, rows, flags, method;
   float scale;
@@ -221,81 +129,144 @@ __device__ __forceinline__ float block_max_all(float v, int tid,
   return v;
 }
 
-// Stream s's gate block: the g x g gate frame, the channel-mean
-// |gate - ref| in shared memory, then a warp a block x block tile (lane l
-// sums the tile's columns l, l + 32, ... top to bottom, a fixed tree of
-// shuffles adds the lanes) and the max of the tile means.  A thread loads
-// kGateBatch pixels and their references before it uses any, so their
-// loads are in flight together.
+// ---------------------------------------------------------------------------
+// gate_score: (a) the map, (b) the tile reduction
+// ---------------------------------------------------------------------------
+
+// Map source of the ingest: gate pixel p of the g x g gate frame, resampled
+// from the stream's source frame through the gate's column table (gx[j]:
+// pixel j's first source column, gx[j + 1] its box's end); kept as the
+// gate frame.
 template <typename T>
-__device__ void gate_block(const T* __restrict__ frame,
-                           const float* __restrict__ refs,
-                           const int* __restrict__ gx,
-                           float* __restrict__ gate, float* __restrict__ score,
-                           float* dmap, const IngestGeo& G, int s) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int H = G.H, C = G.C, g = G.g, rowC = G.W * C;
-  const bool box = G.method != kNearest;
-  const long long base = static_cast<long long>(s) * g * g * C;
-  for (int p0 = tid; p0 < g * g; p0 += kGateBatch * nthreads) {
+struct ResampledPixels {
+  const T* frame;
+  const int* gx;
+  float* gate;
+  int H, rowC, g, C;
+  bool box;
+  float scale;
+
+  __device__ __forceinline__ void load(int p, float* v) const {
+    const int i = p / g, j = p - i * g;
+    const int y0 = i * H / g, y1 = box ? (i + 1) * H / g : y0 + 1;
+    const int x0 = gx[j] * C, x1 = box ? gx[j + 1] * C : x0 + C;
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c) {
+      if (c >= C) break;
+      v[c] = box ? box_mean(frame, rowC, y0, y1, x0 + c, x1 + c, C, scale)
+                 : norm32(frame + y0 * rowC, x0 + c, scale);
+    }
+  }
+  __device__ __forceinline__ void keep(int p, const float* v) const {
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c) {
+      if (c >= C) break;
+      gate[p * C + c] = v[c];
+    }
+  }
+};
+
+// Map source of block_sad: pixel p of a frame already at gate size.
+struct GatePixels {
+  const float* frame;
+  int C;
+
+  __device__ __forceinline__ void load(int p, float* v) const {
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c) {
+      if (c >= C) break;
+      v[c] = __ldg(frame + p * C + c);
+    }
+  }
+  __device__ __forceinline__ void keep(int, const float*) const {}
+};
+
+// (a) dmap[p] = the channel mean of |pixel - ref| over the n pixels: the
+// channels added in order, then divided by C.  A thread loads kGateBatch
+// pixels and their references before it uses any, so their loads are in
+// flight together.
+template <typename Src>
+__device__ __forceinline__ void build_map(const Src& src,
+                                          const float* __restrict__ ref,
+                                          float* dmap, int n, int C, int tid,
+                                          int nthreads) {
+  for (int p0 = tid; p0 < n; p0 += kGateBatch * nthreads) {
     float v[kGateBatch][kMaxC], r[kGateBatch][kMaxC];
 #pragma unroll
     for (int k = 0; k < kGateBatch; ++k) {
       const int p = p0 + k * nthreads;
-      if (p >= g * g) break;
-      const int i = p / g, j = p - i * g;
-      const int y0 = i * H / g, y1 = box ? (i + 1) * H / g : y0 + 1;
-      const int x0 = gx[j] * C, x1 = box ? gx[j + 1] * C : x0 + C;
+      if (p >= n) break;
+      src.load(p, v[k]);
 #pragma unroll
       for (int c = 0; c < kMaxC; ++c) {
         if (c >= C) break;
-        v[k][c] = box ? box_mean(frame, rowC, y0, y1, x0 + c, x1 + c, C,
-                                 G.scale)
-                      : norm32(frame + y0 * rowC, x0 + c, G.scale);
-        r[k][c] = __ldg(refs + base + p * C + c);
+        r[k][c] = __ldg(ref + p * C + c);
       }
     }
 #pragma unroll
     for (int k = 0; k < kGateBatch; ++k) {
       const int p = p0 + k * nthreads;
-      if (p >= g * g) break;
+      if (p >= n) break;
+      src.keep(p, v[k]);
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < kMaxC; ++c) {
         if (c >= C) break;
-        gate[base + p * C + c] = v[k][c];
         sum += fabsf(v[k][c] - r[k][c]);
       }
       dmap[p] = sum / static_cast<float>(C);
     }
   }
-  __syncthreads();
-  const int B = G.block, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  float best = -INFINITY;
-  int owner = 0;
-  for (int y0 = 0; y0 < g; y0 += B) {
-    const int hy = min(B, g - y0);
-    for (int x0 = 0; x0 < g; x0 += B) {
-      const bool mine = owner == warp;
-      owner = owner + 1 == nwarps ? 0 : owner + 1;
-      if (!mine) continue;
-      const int hx = min(B, g - x0);
-      float sum = 0.f;
-      for (int xx = lane; xx < hx; xx += 32) {
-        const float* col = dmap + y0 * g + x0 + xx;
-#pragma unroll 8
-        for (int yy = 0; yy < hy; ++yy) sum += col[yy * g];
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_down_sync(kFull, sum, off);
-      if (lane == 0) best = fmaxf(best, sum / static_cast<float>(hy * hx));
-    }
-  }
-  best = block_max_all(best, tid, nthreads);
-  if (tid == 0) score[s] = best;
 }
+
+// (b) This warp's share of the max over the B x B tiles of the h x w map
+// of the tile means (block_max_all takes the block's).  Tile t (row-major)
+// goes to warp t % nwarps, which walks only its own tiles; lane l sums the
+// tile's columns l, l + 32, ... top to bottom, a fixed tree of shuffles
+// adds the lanes, the sum is divided by the tile's valid pixels.  Valid in
+// lane 0.
+__device__ __forceinline__ float tile_max(const float* dmap, int h, int w,
+                                          int B, int tid, int nthreads) {
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int ntx = (w + B - 1) / B, nt = (h + B - 1) / B * ntx;
+  float best = -INFINITY;
+  for (int t = warp; t < nt; t += nwarps) {
+    const int ty = t / ntx;
+    const int y0 = ty * B, x0 = (t - ty * ntx) * B;
+    const int hy = min(B, h - y0), hx = min(B, w - x0);
+    float sum = 0.f;
+    for (int xx = lane; xx < hx; xx += 32) {
+      const float* col = dmap + y0 * w + x0 + xx;
+#pragma unroll 8
+      for (int yy = 0; yy < hy; ++yy) sum += col[yy * w];
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_down_sync(kFull, sum, off);
+    if (lane == 0) best = fmaxf(best, sum / static_cast<float>(hy * hx));
+  }
+  return best;
+}
+
+// One stream's score, by every thread of the block: the h x w map of src
+// against ref (the stream's own rows), then its tiles; *score by thread 0.
+template <typename Src>
+__device__ __forceinline__ void gate_score(const Src& src,
+                                           const float* __restrict__ ref,
+                                           float* __restrict__ score,
+                                           float* dmap, int h, int w, int C,
+                                           int B) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  build_map(src, ref, dmap, h * w, C, tid, nthreads);
+  __syncthreads();
+  float best = tile_max(dmap, h, w, B, tid, nthreads);
+  best = block_max_all(best, tid, nthreads);
+  if (tid == 0) *score = best;
+}
+
+// ---------------------------------------------------------------------------
+// model_rows: blocks of model rows, 16 bytes of up to four rows a thread
+// ---------------------------------------------------------------------------
 
 // One model element (nearest: the source element; box: its bucket's mean)
 // of output row i.
@@ -309,35 +280,23 @@ __device__ __forceinline__ float model_elem(const T* frame, int rowC, int i,
                   G.scale);
 }
 
-// grid (S, 1 + ceil(m / (blockDim.y * rows)), chunks), block (tx, ty).
-// blockIdx.y 0 is stream blockIdx.x's gate block (chunk 0 only); in the
-// others thread (x, y) holds one 16-byte unit (or one element) of `rows`
-// consecutive model rows, G.rows <= kMaxRows: it loads all of them before
-// it stores any.  tab holds the column maps: for model element e its first
-// source element (and, for box, its bucket's end), then the gate's source
-// column of each gate pixel (and one past).  No thread waits on another
-// outside the gate blocks, and the gate blocks, first in the grid, run
-// beside the model rows.
+// Model-row block `group` of stream s (frame: its source frame): thread
+// (x, y) holds one 16-byte unit (or one element) of G.rows consecutive
+// rows of the m x m output, G.rows <= kMaxRows, and loads all of them
+// before it stores any.  tab holds the column map: for model element e its
+// first source element (and, for box, at tab[m * C + e], its bucket's
+// end).
 template <typename T>
-__global__ void __launch_bounds__(512)
-ingest_kernel(const T* __restrict__ frames, const float* __restrict__ refs,
-              const int* __restrict__ tab, float* __restrict__ model,
-              float* __restrict__ gate, float* __restrict__ score,
-              IngestGeo G) {
-  extern __shared__ float dmap[];                   // g * g, gate blocks
-  const int s = blockIdx.x;
+__device__ __forceinline__ void model_rows(const T* __restrict__ frame,
+                                           const int* __restrict__ tab,
+                                           float* __restrict__ model,
+                                           const IngestGeo& G, int s,
+                                           int group) {
   const int C = G.C, m = G.m, rowC = G.W * C, mC = m * C;
   const bool box = G.method != kNearest;
-  const T* frame = frames + static_cast<long long>(s) * G.H * rowC;
   const int* me0 = tab;
   const int* me1 = tab + mC;                        // box only
-  if (blockIdx.y == 0) {
-    if (blockIdx.z == 0)
-      gate_block(frame, refs, tab + (box ? 2 : 1) * mC, gate, score, dmap,
-                 G, s);
-    return;
-  }
-  const int i0 = ((blockIdx.y - 1) * blockDim.y + threadIdx.y) * G.rows;
+  const int i0 = (group * blockDim.y + threadIdx.y) * G.rows;
   const int u = blockIdx.z * blockDim.x + threadIdx.x;
   float* out = model + (static_cast<long long>(s) * m + i0) * mC;
   if (!(G.flags & kModelVec)) {
@@ -373,17 +332,75 @@ ingest_kernel(const T* __restrict__ frames, const float* __restrict__ refs,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the kernels
+// ---------------------------------------------------------------------------
+
+// ingest: grid (S, 1 + ceil(m / (blockDim.y * rows)), chunks), block
+// (tx, ty).  blockIdx.y 0 is stream blockIdx.x's gate block (chunk 0
+// only): gate_score on the resampled source, the gate's column table after
+// the model's in tab.  Every other block is model_rows.
+template <typename T>
+__global__ void __launch_bounds__(kMaxBlock)
+ingest_kernel(const T* __restrict__ frames, const float* __restrict__ refs,
+              const int* __restrict__ tab, float* __restrict__ model,
+              float* __restrict__ gate, float* __restrict__ score,
+              IngestGeo G) {
+  extern __shared__ float dmap[];                   // g * g, gate blocks
+  const int s = blockIdx.x;
+  const int C = G.C, rowC = G.W * C;
+  const T* frame = frames + static_cast<long long>(s) * G.H * rowC;
+  if (blockIdx.y != 0) {
+    model_rows(frame, tab, model, G, s, blockIdx.y - 1);
+    return;
+  }
+  if (blockIdx.z != 0) return;
+  const bool box = G.method != kNearest;
+  const long long base = static_cast<long long>(s) * G.g * G.g * C;
+  const ResampledPixels<T> src{frame, tab + (box ? 2 : 1) * G.m * C,
+                               gate + base, G.H, rowC, G.g, C, box,
+                               G.scale};
+  gate_score(src, refs + base, score + s, dmap, G.g, G.g, C, G.block);
+}
+
+// downscale: grid (S, ceil(m / (blockDim.y * rows)), chunks), block
+// (tx, ty): the ingest's model-row blocks alone.
+template <typename T>
+__global__ void __launch_bounds__(kMaxBlock)
+downscale_kernel(const T* __restrict__ frames, const int* __restrict__ tab,
+                 float* __restrict__ out, IngestGeo G) {
+  const int s = blockIdx.x;
+  model_rows(frames + static_cast<long long>(s) * G.H * G.W * G.C, tab,
+             out, G, s, blockIdx.y);
+}
+
+// block_sad: grid (S,), one block a stream; the h x w map in dynamic
+// shared memory.  frames and refs are (S, h, w, C) fp32.
+__global__ void __launch_bounds__(kMaxBlock)
+score_kernel(const float* __restrict__ refs, const float* __restrict__ frames,
+             float* __restrict__ score, int h, int w, int C, int block) {
+  extern __shared__ float dmap[];                   // h * w, one stream
+  const long long base = static_cast<long long>(blockIdx.x) * h * w * C;
+  gate_score(GatePixels{frames + base, C}, refs + base, score + blockIdx.x,
+             dmap, h, w, C, block);
+}
+
+// Allow `smem` bytes of dynamic shared memory where it is over the 48 KB a
+// launch gets without asking.
+template <typename K>
+int allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
 template <typename T>
 int launch_ingest(const void* frames, const void* refs, const int* tab,
                   void* model, void* gate, void* score, int S, int tx,
                   int ty, int chunks, const IngestGeo& G, cudaStream_t st) {
   auto kernel = ingest_kernel<T>;
   const int smem = G.g * G.g * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (const int e = allow_smem(kernel, smem)) return e;
   const int group = ty * G.rows;                  // model rows a block
   const dim3 grid(S, 1 + (G.m + group - 1) / group, chunks);
   kernel<<<grid, dim3(tx, ty), static_cast<size_t>(smem), st>>>(
@@ -393,21 +410,14 @@ int launch_ingest(const void* frames, const void* refs, const int* tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// grid = (S,): score of frames[s] against refs[s], both (H, W, C) fp32.
-__global__ void sad_kernel(const float* __restrict__ refs,
-                           const float* __restrict__ frames,
-                           float* __restrict__ score, int H, int W, int C,
-                           int block) {
-  extern __shared__ float d[];                       // H * W
-  const long long off = static_cast<long long>(blockIdx.x) * H * W * C;
-  for (int p = threadIdx.x; p < H * W; p += blockDim.x) {
-    float sum = 0.f;
-    for (int c = 0; c < C; ++c)
-      sum += fabsf(frames[off + p * C + c] - refs[off + p * C + c]);
-    d[p] = sum / static_cast<float>(C);
-  }
-  __syncthreads();
-  max_block_mean(d, H, W, block, score + blockIdx.x);
+// True where a (tx, ty) block of `rows` model rows a thread, `chunks`
+// blocks a row and `groups` row groups a stream is a launch the kernels
+// take.
+bool model_geometry_ok(int C, int rows, int tx, int ty, int chunks,
+                       int groups) {
+  return C >= 1 && C <= kMaxC && rows >= 1 && rows <= kMaxRows && tx >= 32 &&
+         tx % 32 == 0 && ty >= 1 && tx * ty <= kMaxBlock && chunks >= 1 &&
+         chunks <= 65535 && groups <= 65535;
 }
 
 template <typename TB>
@@ -500,29 +510,30 @@ scatter_rows_kernel(const uint8_t* __restrict__ admit,
                     flags & kRefsRowVec);
 }
 
-int grid_for(long long n) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < 132 * 64 ? (blocks > 0 ? blocks : 1)
-                                            : 132 * 64);
-}
-
 }  // namespace
 
 
 extern "C" {
 
-int vo_downscale(const void* frames, void* out, int S, int H, int W, int C,
-                 int res, int is_u8, int method, float scale, void* stream) {
+int vo_downscale(const void* frames, const void* tab, void* out, int S,
+                 int H, int W, int C, int res, int is_u8, int method,
+                 float scale, int rows, int tx, int ty, int chunks,
+                 int flags, void* stream) {
+  const IngestGeo G{H, W, C, res, 0, 0, rows, flags, method, scale};
+  const int groups = rows > 0 && ty > 0 ? (res + ty * rows - 1) / (ty * rows)
+                                        : 0;
+  if (S < 1 || res < 1 ||
+      !model_geometry_ok(C, rows, tx, ty, chunks, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = grid_for(static_cast<long long>(S) * res * res);
+  const dim3 grid(S, groups, chunks), blk(tx, ty);
+  const int* t = static_cast<const int*>(tab);
   if (is_u8)
-    resample_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint8_t*>(frames), static_cast<float*>(out), S, H,
-        W, C, res, method, scale);
+    downscale_kernel<uint8_t><<<grid, blk, 0, st>>>(
+        static_cast<const uint8_t*>(frames), t, static_cast<float*>(out), G);
   else
-    resample_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(frames), static_cast<float*>(out), S, H, W,
-        C, res, method, scale);
+    downscale_kernel<float><<<grid, blk, 0, st>>>(
+        static_cast<const float*>(frames), t, static_cast<float*>(out), G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -532,10 +543,10 @@ int vo_ingest(const void* frames, const void* refs, const void* tab,
               float scale, int rows, int tx, int ty, int chunks, int flags,
               void* stream) {
   const IngestGeo G{H, W, C, m, g, block, rows, flags, method, scale};
-  if (S < 1 || C < 1 || C > kMaxC || block < 1 || rows < 1 ||
-      rows > kMaxRows || tx < 32 || tx % 32 != 0 || ty < 1 ||
-      tx * ty > 512 || chunks < 1 || chunks > 65535 ||
-      1 + (m + ty * rows - 1) / (ty * rows) > 65535)
+  const int groups = rows > 0 && ty > 0 ? 1 + (m + ty * rows - 1) / (ty * rows)
+                                        : 0;
+  if (S < 1 || block < 1 ||
+      !model_geometry_ok(C, rows, tx, ty, chunks, groups))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tab);
@@ -547,9 +558,14 @@ int vo_ingest(const void* frames, const void* refs, const void* tab,
 }
 
 int vo_block_sad(const void* refs, const void* frames, void* score, int S,
-                 int H, int W, int C, int block, void* stream) {
-  const size_t shmem = sizeof(float) * H * W;
-  sad_kernel<<<S, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
+                 int H, int W, int C, int block, int threads, void* stream) {
+  if (S < 1 || H < 1 || W < 1 || C < 1 || C > kMaxC || block < 1 ||
+      threads < 32 || threads % 32 != 0 || threads > kMaxBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = H * W * static_cast<int>(sizeof(float));
+  if (const int e = allow_smem(score_kernel, smem)) return e;
+  score_kernel<<<S, threads, static_cast<size_t>(smem),
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(refs), static_cast<const float*>(frames),
       static_cast<float*>(score), H, W, C, block);
   return static_cast<int>(cudaGetLastError());

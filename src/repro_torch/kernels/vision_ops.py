@@ -13,8 +13,10 @@ and bound with ``ctypes`` (``kernels/build.py``).
                      frame in the batch pool (cast to the pool dtype) and the
                      new gate frame in the references.  Replaces
                      ``_scatter_kernel``.
-  ``downscale``      the resample half alone.  Replaces ``_downscale_kernel``.
-  ``block_sad``      the score half alone.  Replaces ``_block_sad_kernel``.
+  ``downscale``      the resample half alone, on the ingest's model-row
+                     code.  Replaces ``_downscale_kernel``.
+  ``block_sad``      the score half alone, on the ingest's gate reduction.
+                     Replaces ``_block_sad_kernel``.
 
 Dispatch rule: a CUDA tensor always goes to the hand kernel (or the call
 raises); a CPU tensor goes to the plain PyTorch version beside it
@@ -47,12 +49,19 @@ the model and gate outputs for ingest), for box the whole H*W frame.
                  copies its share of the row from that one source, 16 bytes
                  a thread; rows that are not 16-byte multiples copy element
                  by element.
-  downscale      S*P*C*in_bytes + S*res*res*C*4 bytes.
-  block_sad      2*S*H*W*C*4 + 4*S bytes; one block per stream, the
-                 difference map in shared memory.
+  downscale      S*P*C*in_bytes + S*res*res*C*4 bytes.  Design: the
+                 ingest's model-row blocks alone, the same device code
+                 (:func:`downscale_plan`), so its frames equal
+                 ``ingest_frame``'s at the same resolution bit for bit.
+  block_sad      2*S*H*W*C*4 + 4*S bytes.  Design: the ingest's gate
+                 score alone (:func:`sad_plan`), one block a stream: the
+                 same map builder reading the frame at gate size, the same
+                 tile reduction, so on the ingest's own gate frame it
+                 gives the ingest's score bit for bit.
+                 :func:`sad_blocks_plain` is its arithmetic in plain
+                 PyTorch; ``downscale``'s is :func:`_resample_rows`.
 
-``downscale`` and ``block_sad`` are first, simple kernels.  Measured times
-beside these bounds are in ``PERF.md``.
+Measured times beside these bounds are in ``PERF.md``.
 """
 from __future__ import annotations
 
@@ -63,17 +72,24 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.attention_common import SMS
+
 METHODS = ("nearest", "box")
 _METHOD_CODE = {"nearest": 0, "box": 1}          # csrc/vision_ops.cu kNearest
 MAX_CHANNELS = 4                                  # csrc kMaxC
-SHARED_BYTES = 48 * 1024       # static-launch shared memory per block
 # dynamic shared memory a block may take on the H100 (227 KB), less room
 # for the static shared memory beside it
 SMEM_MAX = 227 * 1024 - 1024
 THREADS = 256                  # csrc kThreads (the scatter's blocks)
 ROWS_PER_THREAD = 4            # model rows an ingest thread holds
 MAX_ROWS_PER_THREAD = 4        # csrc kMaxRows
-GATE_THREADS = 256             # an ingest block's threads, at least
+GATE_THREADS = 256             # an ingest or block_sad block's threads,
+                               # at least
+MAX_BLOCK_THREADS = 512        # csrc kMaxBlock
+GATE_BATCH = 4                 # csrc kGateBatch: map pixels a thread loads
+# the least grid a downscale launch takes where the shapes allow: two
+# blocks an SM
+DOWNSCALE_MIN_BLOCKS = 2 * SMS
 INGEST_TX = 256                # most threads across one model row
 SCATTER_UNROLL = 4             # csrc kUnroll: 16-byte copies a thread
 # vector-path flags (csrc kModelVec; kBatchRowVec, kRefsRowVec)
@@ -96,10 +112,11 @@ def reset_launches() -> None:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "vo_downscale": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "vo_downscale": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                     _I, _I, _P),
     "vo_ingest": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                   _I, _F, _I, _I, _I, _I, _I, _P),
-    "vo_block_sad": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vo_block_sad": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vo_scatter_admit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _P),
 }
@@ -166,17 +183,31 @@ def _check_f32(name: str, t: torch.Tensor) -> None:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def _check_shared(h: int, w: int, block: int) -> None:
-    if block < 1:
-        raise ValueError(f"block must be >= 1, got {block}")
-    if h * w * 4 > SHARED_BYTES:
-        raise ValueError(f"a {h}x{w} score map needs {h * w * 4} bytes of "
-                         f"shared memory, over {SHARED_BYTES}")
-
-
 # ---------------------------------------------------------------------------
 # launch geometry: host mirrors of what csrc/vision_ops.cu computes
 # ---------------------------------------------------------------------------
+
+
+def _check_rows(rows: int) -> None:
+    if not 1 <= rows <= MAX_ROWS_PER_THREAD:
+        raise ValueError(f"rows must be in 1..{MAX_ROWS_PER_THREAD}, got "
+                         f"{rows}")
+
+
+def _model_units(H: int, W: int, C: int, m: int, g: int = 0):
+    """The model rows' geometry that ``ingest_frame`` and ``downscale``
+    share: (16-byte path, units a row, threads across a row, chunks a
+    row).  A unit is 16 bytes of output where the row is a multiple of
+    that, else one element.  Raises where 32-bit indexing would not hold
+    the shapes."""
+    if max(H * W * C, (max(m, g) + 1) * max(H, W) * C) > _INT_MAX:
+        res = f"{m}/{g}" if g else f"{m}"
+        raise ValueError(f"frames ({H}, {W}, {C}) at resolution {res} "
+                         f"overflow the kernel's 32-bit indexing")
+    model_vec = (m * C) % 4 == 0
+    units = m * C // 4 if model_vec else m * C
+    tx = min(INGEST_TX, -(-units // 32) * 32)
+    return model_vec, units, tx, -(-units // tx)
 
 
 def ingest_plan(S: int, H: int, W: int, C: int, m: int, g: int, block: int,
@@ -191,19 +222,11 @@ def ingest_plan(S: int, H: int, W: int, C: int, m: int, g: int, block: int,
     g x g map.  Raises where the card's grid, a block's shared memory or
     32-bit indexing would not hold the shapes."""
     rows = ROWS_PER_THREAD if rows is None else rows
-    if not 1 <= rows <= MAX_ROWS_PER_THREAD:
-        raise ValueError(f"rows must be in 1..{MAX_ROWS_PER_THREAD}, got "
-                         f"{rows}")
+    _check_rows(rows)
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
-    if max(H * W * C, (max(m, g) + 1) * max(H, W) * C) > _INT_MAX:
-        raise ValueError(f"frames ({H}, {W}, {C}) at resolutions {m}/{g} "
-                         f"overflow the kernel's 32-bit indexing")
-    model_vec = (m * C) % 4 == 0
-    units = m * C // 4 if model_vec else m * C
-    tx = min(INGEST_TX, -(-units // 32) * 32)
+    model_vec, units, tx, chunks = _model_units(H, W, C, m, g)
     ty = -(-GATE_THREADS // tx)
-    chunks = -(-units // tx)
     group = ty * rows
     groups = -(-m // group)
     smem = g * g * 4
@@ -221,12 +244,72 @@ def ingest_plan(S: int, H: int, W: int, C: int, m: int, g: int, block: int,
                 flags=_MODEL_VEC * model_vec)
 
 
+def downscale_plan(S: int, H: int, W: int, C: int, res: int, *,
+                   rows: int = None) -> dict:
+    """The ``downscale`` launch: :func:`ingest_plan`'s model-row blocks
+    with no gate block, grid (S, ceil(res / (ty * rows)), chunks) of (tx,
+    ty) threads, thread (x, y) holding one 16-byte unit (or one element) of
+    ``rows`` consecutive output rows.  No gate block shares the launch, so
+    the block is not tied to ``GATE_THREADS``: unless ``rows`` is given,
+    the ingest's setting (``ROWS_PER_THREAD`` rows a thread, about
+    ``GATE_THREADS`` threads a block) halves its rows a thread, then its
+    rows of threads, while the grid holds fewer than
+    ``DOWNSCALE_MIN_BLOCKS`` blocks, so a small output (the gate's 32 px)
+    still spreads over the card.  Raises where the card's grid or 32-bit
+    indexing would not hold the shapes."""
+    auto = rows is None
+    rows = ROWS_PER_THREAD if auto else rows
+    _check_rows(rows)
+    model_vec, units, tx, chunks = _model_units(H, W, C, res)
+    ty = -(-GATE_THREADS // tx)
+
+    def blocks(ty, rows):
+        return S * -(-res // (ty * rows)) * chunks
+    while auto and rows > 1 and blocks(ty, rows) < DOWNSCALE_MIN_BLOCKS:
+        rows //= 2
+    while auto and ty > 1 and blocks(ty, rows) < DOWNSCALE_MIN_BLOCKS:
+        ty //= 2
+    group = ty * rows
+    groups = -(-res // group)
+    if groups > 65535 or chunks > 65535:
+        raise ValueError(f"{res} rows of {units} units overflow the grid")
+    return dict(grid=(S, groups, chunks), block=(tx, ty), threads=tx * ty,
+                blocks=S * groups * chunks, rows=rows, chunks=chunks,
+                units=units, model_rows=[(r * group, min(res, (r + 1) * group))
+                                         for r in range(groups)],
+                model_vec=model_vec, flags=_MODEL_VEC * model_vec)
+
+
+def sad_plan(S: int, H: int, W: int, C: int, block: int) -> dict:
+    """The ``block_sad`` launch: grid (S,), one block a stream of
+    ``threads``: at least ``GATE_THREADS``, and up to ``MAX_BLOCK_THREADS``
+    a warp a tile and at most ``GATE_BATCH`` map pixels a thread; the H x W
+    map in dynamic shared memory, ``tiles`` block x block tiles dealt to
+    its warps in turn.  Raises where a block's shared memory or the
+    kernel's channels would not hold the shapes."""
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"the block_sad kernel takes 1..{MAX_CHANNELS} "
+                         f"channels, got {C}")
+    smem = H * W * 4
+    if smem > SMEM_MAX:
+        raise ValueError(f"a {H}x{W} score map needs {smem} bytes of shared "
+                         f"memory, over {SMEM_MAX}")
+    tiles = -(-H // block) * -(-W // block)
+    warps = max(tiles, -(-H * W // (GATE_BATCH * 32)))
+    threads = min(MAX_BLOCK_THREADS, max(GATE_THREADS, warps * 32))
+    return dict(grid=(S,), blocks=S, threads=threads, smem=smem,
+                tiles=tiles)
+
+
 def ingest_tables(W: int, C: int, m: int, g: int,
                   method: str = "nearest") -> torch.Tensor:
     """The ingest kernel's column maps, int32: for each model element e (of
     m * C) the offset of its first source element in a source row, for box
     also the end of its bucket, then each gate pixel's source column
-    (g + 1 entries: box reads [gx[j], gx[j+1]))."""
+    (g + 1 entries: box reads [gx[j], gx[j+1])).  g = 0: the model's maps
+    alone (``downscale``)."""
     c = torch.arange(C)
 
     def elems(x):                    # pixel columns -> element offsets
@@ -235,7 +318,8 @@ def ingest_tables(W: int, C: int, m: int, g: int,
     parts = [elems(j * W // m)]
     if method == "box":
         parts.append(elems((j + 1) * W // m))
-    parts.append(torch.arange(g + 1) * W // g)
+    if g:
+        parts.append(torch.arange(g + 1) * W // g)
     return torch.cat(parts).to(torch.int32)
 
 
@@ -370,14 +454,14 @@ def _resample_rows(x: torch.Tensor, res: int, method: str) -> torch.Tensor:
 
 
 def _tile_max(d: torch.Tensor, block: int) -> torch.Tensor:
-    """The gate block's reduction of the (S, g, g) map: per tile, lane l of
+    """The gate score's reduction of the (S, h, w) map: per tile, lane l of
     a warp sums the tile's columns l, l+32, ... top to bottom, a fixed tree
     of shuffles adds the 32 lanes, the sum is divided by the tile's valid
     pixels; the max over tiles.  (S,) fp32."""
-    S, g, _ = d.shape
+    S, h, w = d.shape
     best = d.new_full((S,), float("-inf"))
-    for y0 in range(0, g, block):
-        for x0 in range(0, g, block):
+    for y0 in range(0, h, block):
+        for x0 in range(0, w, block):
             v = d[:, y0:y0 + block, x0:x0 + block]
             hy, hx = v.shape[1:]
             v = torch.nn.functional.pad(v, (0, -(-hx // 32) * 32 - hx))
@@ -392,26 +476,33 @@ def _tile_max(d: torch.Tensor, block: int) -> torch.Tensor:
     return best
 
 
+def sad_blocks_plain(refs: torch.Tensor, frames: torch.Tensor,
+                     block: int = 8) -> torch.Tensor:
+    """``block_sad``'s kernel arithmetic in plain PyTorch (and the
+    ingest's score of its gate frame): the map as the kernel builds it,
+    per pixel the channels' |frame - ref| added in order and divided by a
+    tensor C, then :func:`_tile_max`.  (S,) fp32."""
+    C = frames.shape[3]
+    diff = frames.new_zeros(frames.shape[:3])
+    for c in range(C):
+        diff = diff + (frames[..., c] - refs[..., c]).abs()
+    return _tile_max(diff / torch.full_like(diff, float(C)), block)
+
+
 def ingest_blocks_plain(frames: torch.Tensor, refs: torch.Tensor, *,
                         model_res: int, gate_res: int, block: int = 8,
                         method: str = "nearest"):
     """``ingest_frame``'s kernel arithmetic in plain PyTorch: the model rows
-    as the model blocks compute them; the gate block's frame, its
-    channel-mean |gate - ref| map and its tile reduction
-    (:func:`_tile_max`).  Nearest frames equal
+    as the model blocks compute them; the gate block's frame and its score
+    (:func:`sad_blocks_plain`).  Nearest frames equal
     :func:`ingest_frame_plain`'s bitwise; box frames and the score sum in
     the kernel's order instead of the einsum's.  Every division is by a
     tensor: PyTorch divides a CUDA tensor by a Python number as a product
     with its reciprocal, which rounds differently."""
-    C = frames.shape[3]
     x = normalize_plain(frames)
     model = _resample_rows(x, model_res, method)
     gate = _resample_rows(x, gate_res, method)
-    diff = x.new_zeros(gate.shape[:3])
-    for c in range(C):
-        diff = diff + (gate[..., c] - refs[..., c]).abs()
-    d = diff / torch.full_like(diff, float(C))
-    return model, gate, _tile_max(d, block)
+    return model, gate, sad_blocks_plain(refs, gate, block)
 
 
 def scatter_blocks_plain(batch, model, refs, gate, admit):
@@ -487,12 +578,15 @@ def downscale(frames: torch.Tensor, res: int, *,
     if not _on_cuda(frames):
         return downscale_plain(frames, res, method=method)
     S, H, W, C = frames.shape
+    plan = downscale_plan(S, H, W, C, res)
     out = torch.empty((S, res, res, C), dtype=torch.float32,
                       device=frames.device)
+    tab = _device_tables(W, C, res, 0, method, frames.device)
     is_u8 = frames.dtype == torch.uint8
-    _launch("vo_downscale", frames.data_ptr(), out.data_ptr(), S, H, W, C,
-            res, int(is_u8), _METHOD_CODE[method],
-            U8_SCALE if is_u8 else 1.0, _stream(frames))
+    _launch("vo_downscale", frames.data_ptr(), tab.data_ptr(),
+            out.data_ptr(), S, H, W, C, res, int(is_u8),
+            _METHOD_CODE[method], U8_SCALE if is_u8 else 1.0, plan["rows"],
+            *plan["block"], plan["chunks"], plan["flags"], _stream(frames))
     LAUNCHES["downscale"] += 1
     return out
 
@@ -508,10 +602,11 @@ def block_sad(refs: torch.Tensor, frames: torch.Tensor, block: int = 8
     if not _on_cuda(refs, frames):
         return block_sad_plain(refs, frames, block)
     S, H, W, C = frames.shape
-    _check_shared(H, W, block)
+    plan = sad_plan(S, H, W, C, block)
     score = torch.empty((S,), dtype=torch.float32, device=frames.device)
     _launch("vo_block_sad", refs.data_ptr(), frames.data_ptr(),
-            score.data_ptr(), S, H, W, C, block, _stream(frames))
+            score.data_ptr(), S, H, W, C, block, plan["threads"],
+            _stream(frames))
     LAUNCHES["block_sad"] += 1
     return score
 

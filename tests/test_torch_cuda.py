@@ -109,6 +109,55 @@ def test_block_sad_and_scatter_match_plain(dev):
             _close(g, w, exact=True)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8], ids=["f32", "u8"])
+@pytest.mark.parametrize("method", ["nearest", "box"])
+def test_downscale_kernel_is_the_ingest_model_rows(dev, dtype, method):
+    """``downscale`` at the gateless engine's 192 px, at the gate's 32 px
+    and on rows of 15 x 3 values (the element path): against plain
+    (nearest bit-exact, box TIGHT), and bitwise equal to its model
+    (``_resample_rows``), to a second call and to ``ingest_frame``'s model
+    and gate frames of the same inputs."""
+    frames = _rand((4, 256, 256, 3), dtype, seed=33).to(dev)
+    small = _rand((3, 20, 20, 3), dtype, seed=34).to(dev)
+    for f, m, g in ((frames, 192, 32), (small, 15, 13)):
+        refs = torch.zeros(f.shape[0], g, g, 3, device=dev)
+        fused = tvo.ingest_frame(f, refs, model_res=m, gate_res=g, block=8,
+                                 method=method)
+        x = tvo.normalize_plain(f)
+        for res, want in ((m, fused[0]), (g, fused[1])):
+            got = tvo.downscale(f, res, method=method)
+            _close(got, tvo.downscale_plain(f, res, method=method),
+                   exact=method == "nearest")
+            assert torch.equal(got, tvo._resample_rows(x, res, method))
+            assert torch.equal(got, tvo.downscale(f, res, method=method))
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [32, 20, 30])
+def test_block_sad_kernel_is_the_ingest_score(dev, g):
+    """``block_sad`` on ``ingest_frame``'s own gate frame gives its score
+    bitwise (nearest and box); against plain within TIGHT and bitwise equal
+    to ``sad_blocks_plain`` and to a second call, at partial edge tiles
+    (20 and 30 with block 8), on a rectangular frame and on a map over
+    48 KB (128 x 128)."""
+    frames = _rand((4, 256, 256, 3), seed=35).to(dev)
+    refs = _rand((4, g, g, 3), seed=36).to(dev)
+    for method in ("nearest", "box"):
+        _, gate, score = tvo.ingest_frame(frames, refs, model_res=48,
+                                          gate_res=g, block=8, method=method)
+        assert torch.equal(tvo.block_sad(refs, gate, 8), score)
+    cases = [(refs, gate)] + [
+        (_rand(shape, seed=37).to(dev), _rand(shape, seed=38).to(dev))
+        for shape in ((3, g, g + 4, 3), (2, 128, 128, 3))]
+    for a, b in cases:
+        got = tvo.block_sad(a, b, 8)
+        _close(got, tvo.block_sad_plain(a, b, 8), exact=False)
+        assert torch.equal(got, tvo.sad_blocks_plain(a, b, 8))
+        assert torch.equal(got, tvo.block_sad(a, b, 8))
+
+
 def _off16(x):
     """x's values in a tensor that starts 4 bytes past a 16-byte boundary
     (the kernels' scalar paths)."""

@@ -41,12 +41,12 @@ from pathlib import Path
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _STORE = "    *reinterpret_cast<float4*>(out + k * mC + e) = v[k];\n"
-_GATE = "    if (blockIdx.z == 0)\n      gate_block("
+_GATE = "  if (blockIdx.z != 0) return;\n"
 _MODEL = "  const int u = blockIdx.z * blockDim.x + threadIdx.x;\n"
 _LDG = "  return __ldg(p + o);\n"
 
 _BATCH = "constexpr int kGateBatch = 4;"
-_BOUNDS = "__global__ void __launch_bounds__(512)\n"
+_BOUNDS = "__global__ void __launch_bounds__(kMaxBlock)\ningest_kernel("
 _L2 = """  return __ldg(p + o);\n"""
 _L2_256 = ("""  float v;\n"""
            """  asm("ld.global.nc.L2::256B.f32 %0, [%1];" : "=f"(v) """
@@ -56,12 +56,12 @@ _L2_256 = ("""  float v;\n"""
 VARIANTS = {
     "base": ({}, True),
     "plain_loads": ({_LDG: "  return p[o];\n"}, True),
-    "no_gate": ({_GATE: "    if (blockIdx.z == 0 && G.g < 0)\n"
-                        "      gate_block("}, False),
+    "no_gate": ({_GATE: "  if (blockIdx.z != 0 || G.g > 0) return;\n"},
+                False),
     "gate_only": ({_MODEL: _MODEL + "  if (G.m > 0) return;\n"}, False),
     "gate_batch2": ({_BATCH: "constexpr int kGateBatch = 2;"}, True),
-    "regs_32": ({_BOUNDS: "__global__ void __launch_bounds__(512, 4)\n"},
-                True),
+    "regs_32": ({_BOUNDS: "__global__ void __launch_bounds__(kMaxBlock, 4)\n"
+                          "ingest_kernel("}, True),
     "l2_256B": ({_L2: _L2_256}, True),
     "stream_stores": ({_STORE: "    __stcs(reinterpret_cast<float4*>(out + "
                                "k * mC + e), v[k]);\n"}, True),

@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Time the ingest and scatter kernels of two checkouts on one card, taking
-turns.
+"""Time the four vision kernels of two checkouts on one card, taking turns.
 
     python3 tools/torch_vision_compare.py --base DIR [--base DIR2 ...]
                                           [--rounds 2] [--sweep]
@@ -17,7 +16,13 @@ each timing at ``chip_smoke.py`` phase 2's shapes, cold L2, the median of
 * ``ingest_frame`` at the main path (32 streams of 256 px fp32 frames ->
   model 192, gate 32, block 8) and at the frugal tier (model 16);
 * ``scatter_admit`` at the main path (a (32, 192, 192, 3) fp32 pool, refs
-  (32, 32, 32, 3)) and at the frugal tier (a (32, 16, 16, 3) bf16 pool).
+  (32, 32, 32, 3)) and at the frugal tier (a (32, 16, 16, 3) bf16 pool);
+* ``downscale`` of the same frames to 192 (the gateless engine) and to 32
+  (``MotionGate.admit``), nearest;
+* ``block_sad`` of (32, 32, 32, 3) fp32 frames, block 8.
+
+Each turn first prints the ptxas registers and spills of the side's
+vision kernels (from its build's ``-Xptxas -v`` report).
 
 With ``--sweep``, each turn also times ``ingest_frame`` at the main path at
 1, 2 and 4 model rows a thread where the side's wrapper offers that
@@ -38,7 +43,17 @@ def _turn(tree: str, sweep: bool) -> dict:
     sys.path.insert(1, ROOT)
     import torch
     import chip_smoke as cs
+    from repro_torch.kernels import build
     from repro_torch.kernels import vision_ops as vo
+    log = build.build("vision_ops").with_suffix(".log")
+    regs = cs.ptxas_entries(
+        log.read_text() if log.exists() else "",
+        r"Compiling entry function '\S*?(ingest_kernel|scatter_rows_kernel"
+        r"|downscale_kernel|score_kernel|resample_kernel|sad_kernel)"
+        r"(?:I(h|f|13__nv_bfloat16)E)?",
+        lambda m: f"{m.group(1)} {m.group(2) or ''}".strip())
+    print(f"{tree}: ptxas (registers, B spilled) " + "  ".join(
+        f"{k} {v}" for k, v in sorted(regs.items())), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     S, H, m, g = cs.SLOTS, cs.FRAME_RES, cs.INPUT_RES, cs.GATE_RES
@@ -74,6 +89,16 @@ def _turn(tree: str, sweep: bool) -> dict:
             vo, "", None,
             lambda: vo.scatter_admit(batch, model, refs, gate, admit),
             lambda got: cs.max_err(got, want, exact=True))
+    for res in (m, g):
+        want = vo.downscale_plain(frames, res)
+        out[f"downscale {res}"] = timed(
+            vo, "", None, lambda: vo.downscale(frames, res),
+            lambda got: cs.max_err(got, want, exact=True))
+    a, b = rand(S, g, g, 3), rand(S, g, g, 3)
+    want = vo.block_sad_plain(a, b, cs.BLOCK)
+    out["block_sad"] = timed(vo, "", None,
+                             lambda: vo.block_sad(a, b, cs.BLOCK),
+                             lambda got: cs.max_err(got, want))
     return out
 
 

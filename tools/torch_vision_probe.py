@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the ingest kernel, on one card.
+"""Where the time goes inside the ingest and block_sad kernels, on one card.
 
     python3 tools/torch_vision_probe.py
 
@@ -7,14 +7,22 @@
 instrumented copy of ``src/repro_torch/kernels/csrc/vision_ops.cu`` (under
 the git-ignored ``src/repro_torch/kernels/_build/probe_vision/``).  Thread
 (0, 0) of every block records ``%globaltimer`` when the block starts and
-when it leaves, and in the gate blocks the SM cycles of the gate frame's
-pixels (the gate frame and the |gate - ref| map) and of the tile
-reduction.  At the main path's shape (32 streams of 256 px fp32 -> model
-192, gate 32) at 1, 2 and 4 model rows a thread, and at the frugal tier
-(model 16), it prints from one cold-L2 call each the kernel's span (first
+when it leaves, and in the gate-score blocks (the ingest's gate blocks and
+``block_sad``'s blocks: the same device code) the SM cycles of the map
+(pixels loaded, the |pixel - ref| map in shared memory), of thread 0's
+warp's tiles and of the block's max.  At the main path's shape (32
+streams of 256 px fp32 -> model 192, gate 32) at 1, 2 and 4 model rows a
+thread, and at the frugal tier (model 16), it prints from one cold-L2 call each the ingest's span (first
 block start to last block end), when the model blocks start (quantiles
 after the first: waves show as steps) and how long one runs, when the gate
 blocks start and end, and their phases in SM cycles (median and max).
+Then ``block_sad`` on (32, 32, 32, 3) and (32, 20, 20, 3) fp32 frames,
+block 8: its span, when its blocks start and end, and the phases' cycles,
+from a cold-L2 call and from a warm one (inputs and
+code in L2), beside the cold-L2 time of the call (CUDA events, median of
+20) and that of a 32-float fill under the same method: what the span
+leaves of that time is the launch and the timing method, not the
+blocks.
 
 The phase anchors are lines of the source: when the source changes, the
 probe fails naming the anchor it no longer finds.  Needs a card.
@@ -28,7 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from torch_decode_probe import EXPORTS, build_instrumented  # noqa: E402
 
-N_STAMPS = 4                     # start, end (globaltimer); gate phases
+N_STAMPS = 5                     # start, end (globaltimer); gate phases
 MAX_BLOCKS = 8192
 
 PRELUDE = '''
@@ -52,21 +60,23 @@ struct ProbeEnd {
 };
 ''' % (N_STAMPS, MAX_BLOCKS, MAX_BLOCKS)
 
+_START = ("  extern __shared__ float dmap[];\n  GTIME(0);\n"
+          "  ProbeEnd probe_end;\n")
 # (anchor, replacement): each anchor must occur once in vision_ops.cu
 PATCHES = (
     ("  extern __shared__ float dmap[];                   // g * g, gate "
-     "blocks\n",
-     "  extern __shared__ float dmap[];\n  GTIME(0);\n"
-     "  ProbeEnd probe_end;\n"),
-    ("  const long long base = static_cast<long long>(s) * g * g * C;\n",
-     "  const long long base = static_cast<long long>(s) * g * g * C;\n"
-     "  unsigned long long probe_t = clock64();\n"),
-    ("      dmap[p] = sum / static_cast<float>(C);\n    }\n  }\n"
-     "  __syncthreads();\n",
-     "      dmap[p] = sum / static_cast<float>(C);\n    }\n  }\n"
-     "  __syncthreads();\n  CYCLES(2);\n"),
-    ("  if (tid == 0) score[s] = best;\n}\n",
-     "  if (tid == 0) score[s] = best;\n  CYCLES(3);\n}\n"),
+     "blocks\n", _START),
+    ("  extern __shared__ float dmap[];                   // h * w, one "
+     "stream\n", _START),
+    ("  build_map(src, ref, dmap, h * w, C, tid, nthreads);\n",
+     "  unsigned long long probe_t = clock64();\n"
+     "  build_map(src, ref, dmap, h * w, C, tid, nthreads);\n"),
+    ("  __syncthreads();\n  float best = tile_max(",
+     "  __syncthreads();\n  CYCLES(2);\n  float best = tile_max("),
+    ("  best = block_max_all(best, tid, nthreads);\n",
+     "  CYCLES(3);\n  best = block_max_all(best, tid, nthreads);\n"),
+    ("  if (tid == 0) *score = best;\n}\n",
+     "  if (tid == 0) *score = best;\n  CYCLES(4);\n}\n"),
 )
 
 
@@ -100,6 +110,7 @@ def main() -> int:
     refs = torch.rand(S, g, g, 3, generator=gen, device=dev)
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
     q = (0.25, 0.5, 0.75, 1.0)
+    rows_default = vo.ROWS_PER_THREAD
     for m, rows in ((cs.INPUT_RES, 1), (cs.INPUT_RES, 2), (cs.INPUT_RES, 4),
                     (16, 1)):
         kw = dict(model_res=m, gate_res=g, block=cs.BLOCK)
@@ -137,9 +148,47 @@ def main() -> int:
               f"{dur.max():.2f} us; gate blocks start by "
               f"{start[gate].max():.1f} us, end by {end[gate].max():.1f} us; "
               f"gate pixels median {np.median(st[2][gate]):.0f} max "
-              f"{st[2][gate].max():.0f} cycles, tile reduction median "
+              f"{st[2][gate].max():.0f} cycles, tiles median "
               f"{np.median(st[3][gate]):.0f} max {st[3][gate].max():.0f} "
+              f"cycles, block max median {np.median(st[4][gate]):.0f} "
               f"cycles", flush=True)
+    vo.ROWS_PER_THREAD = rows_default
+    one = torch.empty(S, device=dev)
+    floor_ms = cs.time_ms(lambda: one.fill_(1.0))
+    for hw in (g, 20):
+        a = torch.rand(S, hw, hw, 3, generator=gen, device=dev)
+        b = torch.rand(S, hw, hw, 3, generator=gen, device=dev)
+        cs.max_err(vo.block_sad(a, b, cs.BLOCK),
+                   vo.block_sad_plain(a, b, cs.BLOCK))
+        plan = vo.sad_plan(S, hw, hw, 3, cs.BLOCK)
+        ms = cs.time_ms(lambda: vo.block_sad(a, b, cs.BLOCK))
+        cells = []
+        for label, cold in (("cold", True), ("warm", False)):
+            stamps = np.zeros((N_STAMPS, MAX_BLOCKS), dtype=np.uint64)
+            vo.block_sad(a, b, cs.BLOCK)
+            if cold:
+                flush.zero_()
+            torch.cuda.synchronize()
+            lib.probe_zero(stamps.ctypes.data)
+            vo.block_sad(a, b, cs.BLOCK)
+            torch.cuda.synchronize()
+            lib.probe_read(stamps.ctypes.data)
+            st = stamps[:, :plan["blocks"]].astype(np.int64)
+            start = (st[0] - st[0].min()) / 1e3
+            end = (st[1] - st[0].min()) / 1e3
+            cells.append(
+                f"{label}: span {end.max():.2f} us, blocks start by "
+                f"{start.max():.2f} us, each runs median "
+                f"{np.median(end - start):.2f} us, map median "
+                f"{np.median(st[2]):.0f} max {st[2].max():.0f} cycles, "
+                f"tiles median {np.median(st[3]):.0f} max "
+                f"{st[3].max():.0f} cycles, block max median "
+                f"{np.median(st[4]):.0f} cycles")
+        print(f"block_sad {S} x {hw} px, block {cs.BLOCK}: {plan['blocks']} "
+              f"blocks of {plan['threads']} threads, {plan['tiles']} tiles "
+              f"a stream; a cold-L2 call {ms * 1e3:.2f} us (instrumented "
+              f"build; a 32-float fill under the same method "
+              f"{floor_ms * 1e3:.2f} us); " + "; ".join(cells), flush=True)
     print(cs.card_line(), flush=True)
     return 0
 
