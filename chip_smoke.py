@@ -118,6 +118,26 @@ wall seconds):
                layers), fp32, weights drawn on the host; for xlstm also
                the ``prefill`` logits of two 160-token prompts (a ragged
                second chunk).
+ 13. fleet     the port's scenario runner (``repro_torch.simulate``) on
+               the card; each scenario is warmed (``warm_kernels``), then
+               driven with every kernel count zeroed just before and read
+               just after, and must end with zero invariant violations:
+               (a) ``golden_churn`` through the gates' downscale and
+               block-SAD kernels: digest, event count, trace counts and
+               summary equal ``tests/golden/fleet_scenario_v1.json``;
+               (b) ``pallas_ingest`` through ingest and scatter-admit:
+               the reference's digest (pinned below); (c)
+               ``mixed_serving`` (vision + token replicas, the paged
+               attention kernels): the reference's digest, every request
+               done; (d) ``token_failover`` twice, its events read the
+               card's own weights: one digest, every request done, every
+               event accepted, spools empty; (e) golden_churn's traffic at
+               the main path's geometry (2 replicas x 16 slots, 256 px
+               frames, 192 px full-width models, 16 vehicles, kernel
+               ingest), FULL_TICKS ticks, on the card and on the CPU with
+               the same host-drawn weights: equal digests; prints ms per
+               gateway tick, offered and processed frames/s, and
+               ``jit_cache_entries`` at warmup and at the end (equal).
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
 global flags): the flags and the sampled tokens are threshold and argmax
@@ -195,6 +215,20 @@ CPU_REQUESTS, CPU_NEW, CPU_PROMPT = 4, 16, (17, 200)
 # xlstm-350m: prefill batch, then greedy steps; then a ServeEngine drain
 XL_PREFILL, XL_STEPS = (4, 512), 16
 XL_REQUESTS, XL_NEW, XL_PROMPT = 8, 16, (16, 128)
+# phase 13: the fleet scenarios.  The reference package's digests of the
+# scenarios whose traces read no model output, so the card's run must give
+# them whatever its weights (tests/test_torch_simulate.py holds these two
+# against the reference; golden_churn's is read from its golden file)
+GOLDEN_CHURN = "tests/golden/fleet_scenario_v1.json"
+PALLAS_INGEST_DIGEST = ("d783006ca518cbf8d2603a281bf29cd57b8e4266"
+                        "bc0e901dad46fbfaacd3f98f")
+MIXED_SERVING_DIGEST = ("0951a09931cc2565c9b1775c96056161c2fba7a4"
+                        "482624fb61aff00d365ee13c")
+# (e): golden_churn's traffic at the main path's geometry (FRAME_RES,
+# INPUT_RES) for FULL_TICKS ticks on the card and on the CPU.  The CPU half
+# must stay near a minute at most: 30 ticks took 1.8 s on the 8-core host
+# of an H100, so the scenario keeps its whole 150 ticks
+FULL_SLOTS, FULL_VEHICLES, FULL_TICKS = 16, 16, 150
 
 
 def fail(msg: str) -> None:
@@ -1527,6 +1561,165 @@ def xlstm_prefill_card_vs_cpu(torch, dev, cfg, card_params, cpu_params):
           f"(tol {TOKEN_TOL})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the fleet scenarios on the card
+# ---------------------------------------------------------------------------
+
+
+def run_scenario_counted(torch, label, scenario, dev, need, **kw):
+    """One scenario through the port's runner on ``dev``: warm (in the
+    runner's constructor), then zero every kernel count, run, read the
+    counts.  Fails on a violation or if a kernel in ``need`` never
+    launched.  Returns (result, runner, wall seconds of the run, gateway
+    ticks, launches)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import vision_ops as vo
+    from repro_torch.simulate import ScenarioRunner
+    runner = ScenarioRunner(scenario, device=dev, **kw)
+    ticks = [0]
+    tick = runner.gw.tick
+
+    def counted_tick(**tkw):
+        ticks[0] += 1
+        return tick(**tkw)
+    runner.gw.tick = counted_tick
+    vo.reset_launches()
+    kops.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = runner.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: n for k, n in {**vo.LAUNCHES, **kops.launches()}.items()
+                if n}
+    if res.violations:
+        fail(f"{label}: {len(res.violations)} violations: "
+             f"{[str(v) for v in res.violations[:4]]}")
+    for name in need:
+        if not launches.get(name):
+            fail(f"{label} never launched {name} (launches {launches})")
+    print(f"scenario {label} on {dev.type}: {scenario.ticks} ticks "
+          f"({ticks[0]} gateway ticks with the drain) in {dt:.3f} s; "
+          f"digest {res.digest}; {len(res.trace)} events "
+          f"{res.trace.counts()}; launches {launches}", flush=True)
+    return res, runner, dt, ticks[0], launches
+
+
+def fleet_scenarios(torch, dev, card, root):
+    """Phase 13 (see the module docstring)."""
+    from repro_torch.configs.eda_vision import detector_config, pose_config
+    from repro_torch.models import vision as V
+    from repro_torch.obs.probes import jit_cache_entries
+    from repro_torch.simulate import ReplicaSpec, get_scenario, run_scenario
+    gate_kernels = ("downscale", "block_sad")
+    tok_kernels = ("paged_decode", "paged_flash")
+
+    # (a) golden_churn against its golden file
+    with open(os.path.join(root, GOLDEN_CHURN)) as f:
+        golden = json.load(f)
+    s = get_scenario(golden["scenario"])
+    if (s.seed, s.ticks) != (golden["seed"], golden["ticks"]):
+        fail("golden_churn's definition differs from its golden file")
+    res, _, _, _, golden_launches = run_scenario_counted(
+        torch, "golden_churn", s, dev, gate_kernels)
+    summary = {k: res.summary[k] for k in golden["summary"]}
+    if summary != golden["summary"]:
+        fail(f"golden_churn summary {summary} != {golden['summary']}")
+    if res.trace.counts() != golden["counts"]:
+        fail(f"golden_churn counts {res.trace.counts()} != "
+             f"{golden['counts']}")
+    if len(res.trace) != golden["events"] or res.digest != golden["digest"]:
+        fail(f"golden_churn digest {res.digest} ({len(res.trace)} events) "
+             f"!= {golden['digest']} ({golden['events']})")
+    print(f"golden_churn: digest, {len(res.trace)} events, counts and "
+          f"summary equal the golden file; launches in one run "
+          f"{golden_launches}", flush=True)
+
+    # (b) pallas_ingest through the ingest and scatter-admit kernels
+    res, *_ = run_scenario_counted(
+        torch, "pallas_ingest", get_scenario("pallas_ingest"), dev,
+        ("ingest_frame", "scatter_admit"))
+    if res.digest != PALLAS_INGEST_DIGEST:
+        fail(f"pallas_ingest digest {res.digest} != {PALLAS_INGEST_DIGEST}")
+
+    # (c) mixed_serving: vision and token replicas
+    res, *_ = run_scenario_counted(
+        torch, "mixed_serving", get_scenario("mixed_serving"), dev,
+        gate_kernels + tok_kernels)
+    if res.digest != MIXED_SERVING_DIGEST:
+        fail(f"mixed_serving digest {res.digest} != {MIXED_SERVING_DIGEST}")
+    if res.summary["tok_done"] != res.summary["tok_submitted"]:
+        fail(f"mixed_serving: {res.summary['tok_done']} of "
+             f"{res.summary['tok_submitted']} requests done")
+    print(f"pallas_ingest and mixed_serving digests equal the reference's",
+          flush=True)
+
+    # (d) token_failover twice: the card's own weights, one digest
+    digests = []
+    for r in range(2):
+        res, *_ = run_scenario_counted(
+            torch, f"token_failover run {r}",
+            get_scenario("token_failover"), dev, gate_kernels + tok_kernels)
+        sm = res.summary
+        if sm["tok_done"] != sm["tok_submitted"]:
+            fail(f"token_failover: {sm['tok_done']} of {sm['tok_submitted']} "
+                 f"requests done")
+        if sm["evt_accepted"] != sm["evt_emitted"] or sm["evt_spool_depth"]:
+            fail(f"token_failover events: accepted {sm['evt_accepted']}, "
+                 f"emitted {sm['evt_emitted']}, depth "
+                 f"{sm['evt_spool_depth']}")
+        digests.append(res.digest)
+    if digests[0] != digests[1]:
+        fail(f"token_failover gave two digests {digests}")
+    print(f"token_failover: both runs {digests[0]}", flush=True)
+
+    # (e) golden_churn's traffic at the vision main path's geometry, card
+    # and CPU with the same host-drawn weights
+    full = get_scenario(
+        "golden_churn", frame_res=FRAME_RES, input_res=INPUT_RES,
+        replicas=tuple(ReplicaSpec(f"r{i}", slots=FULL_SLOTS)
+                       for i in range(2)),
+        max_vehicles=FULL_VEHICLES, use_kernels=True, ticks=FULL_TICKS)
+    weights = {}
+
+    def host_params(i):
+        if i not in weights:
+            g = torch.Generator().manual_seed(i)
+            weights[i] = (V.init_detector(detector_config(INPUT_RES), g,
+                                          "cpu"),
+                          V.init_pose(pose_config(INPUT_RES), g, "cpu"))
+        return weights[i]
+
+    print(f"full-size scenario: golden_churn traffic, {FULL_TICKS} ticks, "
+          f"2 replicas x {FULL_SLOTS} slots, frames {FRAME_RES} px, models "
+          f"{INPUT_RES} px, up to {FULL_VEHICLES} vehicles, kernel ingest",
+          flush=True)
+    card_res, runner, dt, gticks, launches = run_scenario_counted(
+        torch, "full-size", full, dev,
+        ("ingest_frame", "scatter_admit"), vision_params=host_params)
+    warm, end = runner._cache_after_warmup, jit_cache_entries()
+    print(f"full-size jit_cache_entries: {warm} at warmup, {end} at the "
+          f"end", flush=True)
+    if warm != end:
+        fail(f"first-use builds grew after warmup: {warm} -> {end}")
+    sm = card_res.summary
+    print(f"full-size on the card: {dt * 1e3 / gticks:.3f} ms per gateway "
+          f"tick over {gticks} ticks; {sm['off'] / dt:.1f} offered frames/s, "
+          f"{sm['adm'] / dt:.1f} processed frames/s ({sm['off']} offered, "
+          f"{sm['adm']} processed, {sm['gate']} gated, {sm['drop']} "
+          f"dropped) on {card}", flush=True)
+    t0 = time.perf_counter()
+    cpu_res = run_scenario(full, device="cpu", vision_params=host_params)
+    print(f"full-size on the CPU: {time.perf_counter() - t0:.1f} s, digest "
+          f"{cpu_res.digest}", flush=True)
+    if cpu_res.digest != card_res.digest:
+        fail(f"full-size digests differ: card {card_res.digest}, CPU "
+             f"{cpu_res.digest}")
+    print("full-size: card and CPU digests equal", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1726,6 +1919,10 @@ def main() -> int:
     xl_args = token_card_vs_cpu(torch, dev, "xlstm-350m", 8, (False,))
     xlstm_prefill_card_vs_cpu(torch, dev, *xl_args)
     phase_done(12, "recurrent card vs CPU")
+
+    # ---- phase 13: the fleet scenarios on the card ------------------------
+    fleet_scenarios(torch, dev, card, os.path.dirname(src))
+    phase_done(13, "fleet scenarios")
     print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)

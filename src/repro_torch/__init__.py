@@ -4,15 +4,18 @@ Mirrors ``src/repro/`` module for module; the JAX package stays the
 reference it is held against.  This package imports torch, numpy and the
 standard library only — never JAX and never the reference package.
 
-Ported so far — the vision main path (push -> ledger record) and the
-token path (request -> chunked prefill -> decode -> ledger record):
+Ported so far — the vision main path (push -> ledger record), the token
+path (request -> chunked prefill -> decode -> ledger record) and the fleet
+simulator that drives both on virtual clocks:
 
   config / configs              EDAConfig, VisionConfig, ModelConfig and
                                 the arch registry (starcoder2-3b,
                                 recurrentgemma-9b, xlstm-350m)
-  core                          clock, early_stop, telemetry, engine_core
-  obs                           sketch, metrics, tracing
-  events.envelope               event taxonomy
+  core                          clock, early_stop, telemetry, engine_core,
+                                scheduler, segmentation, energy
+  obs                           sketch, metrics, tracing, probes
+  events                        the event plane: envelopes, spools,
+                                evidence, sinks, emitters and the pump
   models                        param descriptors, detector/pose CNNs,
                                 layers, attention (contiguous and paged
                                 KV), RG-LRU, mLSTM/sLSTM, the transformer
@@ -22,7 +25,10 @@ token path (request -> chunked prefill -> decode -> ledger record):
                                 scatter-admit, downscale, block-SAD; paged
                                 decode, paged flash, flash, decode; RG-LRU
                                 scan, chunkwise mLSTM
-  streams                       MotionGate, tiers, VisionServeEngine
+  streams                       MotionGate, tiers and TierDirector,
+                                VisionServeEngine, FleetGateway, cells
+  simulate                      scenario library, runner, trace,
+                                invariants (the reference's digests)
   serving                       ServeEngine (the token workload shell)
   launch.serve                  the serving CLI
   data.synthetic                deterministic dash-cam clips

@@ -7,6 +7,9 @@
   engine_core   the shared continuous-batching EngineCore: slot-pool row
                 admission, two-class PriorityQueue, LanePool preemption,
                 tick phases + deadline budgets
+  scheduler     capacity-aware master/worker placement (paper section 3.2.5)
+  segmentation  equal-split / exact-merge of streams (section 3.2.4)
+  energy        energy proxy model (section 4.2.3)
 """
 from repro_torch.core.clock import Clock, VirtualClock, WallClock  # noqa: F401
 from repro_torch.core.early_stop import (DynamicESD,  # noqa: F401
@@ -15,4 +18,10 @@ from repro_torch.core.engine_core import (INNER, OUTER,  # noqa: F401
                                           BlockPool, EngineCore, LanePool,
                                           PriorityQueue, batch_axis,
                                           insert_row)
+from repro_torch.core.energy import EnergyModel  # noqa: F401
+from repro_torch.core.scheduler import (CapacityScheduler,  # noqa: F401
+                                        HardwareInfo, WorkerState)
+from repro_torch.core.segmentation import (Segment,  # noqa: F401
+                                           SegmentResult, merge_results,
+                                           split_video)
 from repro_torch.core.telemetry import Ledger, SegmentRecord  # noqa: F401

@@ -36,8 +36,12 @@ recurrent state.
 The reference compiles four jitted dispatch functions, shared by every
 engine of one (cfg, opts, sample); PyTorch runs eagerly, so here they are
 plain closures (:func:`dispatch_fns`).  Sampling stays inside them: one
-host fetch of the sampled ids per tick.  The reference's
-``jit_cache_entries`` waits for the simulator slice (``ROADMAP.md``).
+host fetch of the sampled ids per tick.  Nothing is cached per shape,
+so the engine has no counterpart of the reference's
+``jit_cache_entries``: the simulator's recompile invariant counts the
+port's first-use builds instead (``obs.probes.jit_cache_entries``: kernel
+libraries, the vision kernels' shape tables, the attention kernels'
+ticket buffers).
 
 On the card, attention runs through the hand-written kernels when
 ``opts.use_kernels`` is set; inactive slots are mirrored exactly: they keep

@@ -138,6 +138,10 @@ class MotionGate:
         references, thresholds, and stats.
         """
         if self.use_kernels:
+            if frames.dtype not in (torch.uint8, torch.float32):
+                # a bf16 tier's batch pool: the kernel reads uint8 or fp32,
+                # and the cast is exact, as the plain path's normalize is
+                frames = frames.to(torch.float32)
             small = vision_ops.downscale(frames, self.gate_res)
             scores = vision_ops.block_sad(self.refs, small, block=self.block)
         else:

@@ -33,8 +33,11 @@ unit of work is a *frame*:
     replicas with counters, backlog, and gate state intact.
 
 Weights are injected (``params=``, e.g. converted from the reference by
-``repro_torch.convert``) or drawn from ``generator=``.  The event
-``emitter`` seam stays ``None`` until the event plane is ported.  The
+``repro_torch.convert``) or drawn from ``generator=``.  The ``emitter``
+seam is ``None`` unless a gateway with an event plane
+(``repro_torch.events``) attaches one: then hazard, distraction and
+deadline-miss events leave from the host phases, and a stream's spool,
+cooldowns and evidence ring travel with it on detach/adopt.  The
 fleet-parallel tick's host-staging mode and ``commit_class`` are not
 ported yet.
 """

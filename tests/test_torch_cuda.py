@@ -861,3 +861,49 @@ def test_recurrent_engines_on_card_match_cpu(dev, arch):
         assert set(launches["cuda"]) == want and not launches["cpu"]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# ---------------------------------------------------------------------------
+# the fleet scenarios on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_golden_churn_on_card_equals_the_golden(dev):
+    """The port's runner on the card reproduces the committed golden_churn
+    digest and counts, through the gate's downscale and block-SAD
+    kernels."""
+    import json
+    import pathlib
+
+    from repro_torch.simulate import get_scenario, run_scenario
+    golden = json.loads((pathlib.Path(__file__).parent / "golden"
+                         / "fleet_scenario_v1.json").read_text())
+    tvo.reset_launches()
+    res = run_scenario(get_scenario("golden_churn"), device=dev)
+    assert res.violations == []
+    assert tvo.LAUNCHES["downscale"] > 0 and tvo.LAUNCHES["block_sad"] > 0
+    assert {k: res.summary[k] for k in golden["summary"]} == golden["summary"]
+    assert res.trace.counts() == golden["counts"]
+    assert len(res.trace) == golden["events"]
+    assert res.digest == golden["digest"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pallas_ingest", "mixed_serving"])
+def test_warm_kernels_keeps_first_use_builds_flat(dev, name):
+    """After ``warm_kernels`` nothing more is built through a run: the
+    count ``jit_cache_entries`` reads at the warmup tick, at the end and
+    after a second run are one number, and the recompile invariant
+    holds."""
+    from repro_torch.obs.probes import jit_cache_entries
+    from repro_torch.simulate import ScenarioRunner, get_scenario
+    s = get_scenario(name)
+    runner = ScenarioRunner(s, device=dev)
+    warmed = jit_cache_entries()
+    assert warmed > 0
+    res = runner.run()
+    assert res.violations == []
+    assert runner._cache_after_warmup == warmed == jit_cache_entries()
+    ScenarioRunner(s, device=dev).run()
+    assert jit_cache_entries() == warmed

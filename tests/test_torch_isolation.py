@@ -90,6 +90,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     eng = VisionServeEngine("e", slots=1, frame_res=32, input_res=16,
                             device="cpu")
     assert eng.batches["outer"].device.type == "cpu"
+    from repro_torch.simulate import get_scenario, run_scenario
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_scenario(get_scenario("golden_churn", ticks=1))
+    assert run_scenario(get_scenario("golden_churn", ticks=1),
+                        device="cpu").ok
 
 
 def test_recurrent_entry_points_default_to_the_card(monkeypatch):
