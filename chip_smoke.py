@@ -138,6 +138,23 @@ wall seconds):
                the same host-drawn weights: equal digests; prints ms per
                gateway tick, offered and processed frames/s, and
                ``jit_cache_entries`` at warmup and at the end (equal).
+ 14. fused     the fused fleet tick (``FleetGateway(parallel=True)``,
+               ``streams/fleet_step.py``) on the card: (a) ``ingest_frame``,
+               ``scatter_admit`` (fp32 and bf16 pools), ``downscale`` (192
+               and 32 px) and ``block_sad`` on 4 x 16 flattened rows (256 px
+               frames, fp32 and uint8) bitwise equal to four launches of 16
+               rows; (b) ``golden_churn`` (the golden file), ``pallas_ingest``
+               and ``mixed_serving`` (the pinned digests) through the fused
+               tick, and the three-group mixed-tier fleet of
+               ``tests/test_torch_fleet_step.py`` (base, low, frugal; seed
+               77; 40 ticks) serial = fused; each prints the fused calls
+               against the ticks that staged a frame (equal) and kernels
+               1-4's launches fused and serial; (c) the full-size cell of
+               13 (e) serial, fused, fused, serial: every digest
+               ``FULL_DIGEST``, ms per gateway tick of each; (d) 13 (e)'s
+               cell widened to 8 replicas x 16 slots (4x its vehicles):
+               serial = fused digests, ms per gateway tick both ways,
+               ``jit_cache_entries`` flat from warmup to the end of each.
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
 global flags): the flags and the sampled tokens are threshold and argmax
@@ -229,6 +246,13 @@ MIXED_SERVING_DIGEST = ("0951a09931cc2565c9b1775c96056161c2fba7a4"
 # must stay near a minute at most: 30 ticks took 1.8 s on the 8-core host
 # of an H100, so the scenario keeps its whole 150 ticks
 FULL_SLOTS, FULL_VEHICLES, FULL_TICKS = 16, 16, 150
+# phase 14: the full-size cell's digest (card = CPU in 13 (e); the CPU's
+# serial and fused runs give it too), and (d)'s width: replicas, and the
+# initial and most vehicles, each 4x (e)'s
+FULL_DIGEST = ("48b9bddad799edf3b18b518980b51f95"
+               "b06fb1063af03286d493252a931ca3a9")
+WIDE_REPLICAS, WIDE_INITIAL, WIDE_VEHICLES = 8, 12, 64
+FLAT_R = 4                                # (a): replicas of SLOTS // 2
 
 
 def fail(msg: str) -> None:
@@ -1571,17 +1595,26 @@ def run_scenario_counted(torch, label, scenario, dev, need, **kw):
     runner's constructor), then zero every kernel count, run, read the
     counts.  Fails on a violation or if a kernel in ``need`` never
     launched.  Returns (result, runner, wall seconds of the run, gateway
-    ticks, launches)."""
+    ticks, launches, gateway ticks in which a replica staged a frame)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import vision_ops as vo
     from repro_torch.simulate import ScenarioRunner
     runner = ScenarioRunner(scenario, device=dev, **kw)
-    ticks = [0]
+    ticks, work, busy = [0], [0], []
+    for r in runner.gw.replicas:
+        def staged(kind, _stage=r.stage_class):
+            active = _stage(kind)
+            busy.append(bool(active.any()))
+            return active
+        r.stage_class = staged
     tick = runner.gw.tick
 
     def counted_tick(**tkw):
         ticks[0] += 1
-        return tick(**tkw)
+        busy.clear()
+        out = tick(**tkw)
+        work[0] += any(busy)
+        return out
     runner.gw.tick = counted_tick
     vo.reset_launches()
     kops.reset_launches()
@@ -1604,15 +1637,26 @@ def run_scenario_counted(torch, label, scenario, dev, need, **kw):
           f"({ticks[0]} gateway ticks with the drain) in {dt:.3f} s; "
           f"digest {res.digest}; {len(res.trace)} events "
           f"{res.trace.counts()}; launches {launches}", flush=True)
-    return res, runner, dt, ticks[0], launches
+    return res, runner, dt, ticks[0], launches, work[0]
+
+
+def check_golden(label, res, golden):
+    """``res`` against the golden file: summary, counts, events, digest."""
+    summary = {k: res.summary[k] for k in golden["summary"]}
+    if summary != golden["summary"]:
+        fail(f"{label} summary {summary} != {golden['summary']}")
+    if res.trace.counts() != golden["counts"]:
+        fail(f"{label} counts {res.trace.counts()} != {golden['counts']}")
+    if len(res.trace) != golden["events"] or res.digest != golden["digest"]:
+        fail(f"{label} digest {res.digest} ({len(res.trace)} events) "
+             f"!= {golden['digest']} ({golden['events']})")
 
 
 def fleet_scenarios(torch, dev, card, root):
-    """Phase 13 (see the module docstring)."""
-    from repro_torch.configs.eda_vision import detector_config, pose_config
-    from repro_torch.models import vision as V
+    """Phase 13 (see the module docstring).  Returns each scenario's
+    launches and token_failover's digest, for phase 14."""
     from repro_torch.obs.probes import jit_cache_entries
-    from repro_torch.simulate import ReplicaSpec, get_scenario, run_scenario
+    from repro_torch.simulate import get_scenario, run_scenario
     gate_kernels = ("downscale", "block_sad")
     tok_kernels = ("paged_decode", "paged_flash")
 
@@ -1622,30 +1666,23 @@ def fleet_scenarios(torch, dev, card, root):
     s = get_scenario(golden["scenario"])
     if (s.seed, s.ticks) != (golden["seed"], golden["ticks"]):
         fail("golden_churn's definition differs from its golden file")
-    res, _, _, _, golden_launches = run_scenario_counted(
+    res, _, _, _, golden_launches, _ = run_scenario_counted(
         torch, "golden_churn", s, dev, gate_kernels)
-    summary = {k: res.summary[k] for k in golden["summary"]}
-    if summary != golden["summary"]:
-        fail(f"golden_churn summary {summary} != {golden['summary']}")
-    if res.trace.counts() != golden["counts"]:
-        fail(f"golden_churn counts {res.trace.counts()} != "
-             f"{golden['counts']}")
-    if len(res.trace) != golden["events"] or res.digest != golden["digest"]:
-        fail(f"golden_churn digest {res.digest} ({len(res.trace)} events) "
-             f"!= {golden['digest']} ({golden['events']})")
+    serial_launches = {"golden_churn": golden_launches}
+    check_golden("golden_churn", res, golden)
     print(f"golden_churn: digest, {len(res.trace)} events, counts and "
           f"summary equal the golden file; launches in one run "
           f"{golden_launches}", flush=True)
 
     # (b) pallas_ingest through the ingest and scatter-admit kernels
-    res, *_ = run_scenario_counted(
+    res, _, _, _, serial_launches["pallas_ingest"], _ = run_scenario_counted(
         torch, "pallas_ingest", get_scenario("pallas_ingest"), dev,
         ("ingest_frame", "scatter_admit"))
     if res.digest != PALLAS_INGEST_DIGEST:
         fail(f"pallas_ingest digest {res.digest} != {PALLAS_INGEST_DIGEST}")
 
     # (c) mixed_serving: vision and token replicas
-    res, *_ = run_scenario_counted(
+    res, _, _, _, serial_launches["mixed_serving"], _ = run_scenario_counted(
         torch, "mixed_serving", get_scenario("mixed_serving"), dev,
         gate_kernels + tok_kernels)
     if res.digest != MIXED_SERVING_DIGEST:
@@ -1659,9 +1696,10 @@ def fleet_scenarios(torch, dev, card, root):
     # (d) token_failover twice: the card's own weights, one digest
     digests = []
     for r in range(2):
-        res, *_ = run_scenario_counted(
-            torch, f"token_failover run {r}",
-            get_scenario("token_failover"), dev, gate_kernels + tok_kernels)
+        res, _, _, _, serial_launches["token_failover"], _ = \
+            run_scenario_counted(torch, f"token_failover run {r}",
+                                 get_scenario("token_failover"), dev,
+                                 gate_kernels + tok_kernels)
         sm = res.summary
         if sm["tok_done"] != sm["tok_submitted"]:
             fail(f"token_failover: {sm['tok_done']} of {sm['tok_submitted']} "
@@ -1677,26 +1715,14 @@ def fleet_scenarios(torch, dev, card, root):
 
     # (e) golden_churn's traffic at the vision main path's geometry, card
     # and CPU with the same host-drawn weights
-    full = get_scenario(
-        "golden_churn", frame_res=FRAME_RES, input_res=INPUT_RES,
-        replicas=tuple(ReplicaSpec(f"r{i}", slots=FULL_SLOTS)
-                       for i in range(2)),
-        max_vehicles=FULL_VEHICLES, use_kernels=True, ticks=FULL_TICKS)
-    weights = {}
-
-    def host_params(i):
-        if i not in weights:
-            g = torch.Generator().manual_seed(i)
-            weights[i] = (V.init_detector(detector_config(INPUT_RES), g,
-                                          "cpu"),
-                          V.init_pose(pose_config(INPUT_RES), g, "cpu"))
-        return weights[i]
+    full = full_scenario()
+    host_params = host_params_of(torch)
 
     print(f"full-size scenario: golden_churn traffic, {FULL_TICKS} ticks, "
           f"2 replicas x {FULL_SLOTS} slots, frames {FRAME_RES} px, models "
           f"{INPUT_RES} px, up to {FULL_VEHICLES} vehicles, kernel ingest",
           flush=True)
-    card_res, runner, dt, gticks, launches = run_scenario_counted(
+    card_res, runner, dt, gticks, launches, _ = run_scenario_counted(
         torch, "full-size", full, dev,
         ("ingest_frame", "scatter_admit"), vision_params=host_params)
     warm, end = runner._cache_after_warmup, jit_cache_entries()
@@ -1718,6 +1744,215 @@ def fleet_scenarios(torch, dev, card, root):
         fail(f"full-size digests differ: card {card_res.digest}, CPU "
              f"{cpu_res.digest}")
     print("full-size: card and CPU digests equal", flush=True)
+    return serial_launches, digests[0]
+
+
+def full_scenario(replicas=2, initial=None, vehicles=FULL_VEHICLES):
+    """13 (e)'s cell: golden_churn's traffic by ``get_scenario`` overrides
+    only, at the vision main path's geometry, kernel ingest."""
+    from repro_torch.simulate import ReplicaSpec, get_scenario
+    over = {} if initial is None else {"initial_vehicles": initial}
+    return get_scenario(
+        "golden_churn", frame_res=FRAME_RES, input_res=INPUT_RES,
+        replicas=tuple(ReplicaSpec(f"r{i}", slots=FULL_SLOTS)
+                       for i in range(replicas)),
+        max_vehicles=vehicles, use_kernels=True, ticks=FULL_TICKS, **over)
+
+
+_HOST_WEIGHTS = {}
+
+
+def host_params_of(torch):
+    """``vision_params`` for the full-size cells: replica i's weights drawn
+    on the host from seed i (once), the same on the card and the CPU."""
+    from repro_torch.configs.eda_vision import detector_config, pose_config
+    from repro_torch.models import vision as V
+
+    def host_params(i):
+        if i not in _HOST_WEIGHTS:
+            g = torch.Generator().manual_seed(i)
+            _HOST_WEIGHTS[i] = (
+                V.init_detector(detector_config(INPUT_RES), g, "cpu"),
+                V.init_pose(pose_config(INPUT_RES), g, "cpu"))
+        return _HOST_WEIGHTS[i]
+    return host_params
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the fused fleet tick on the card
+# ---------------------------------------------------------------------------
+
+
+def flattened_launches(torch, vo, dev):
+    """14 (a): each vision kernel on FLAT_R x SLOTS // 2 flattened rows
+    (the fused tick's launch) bitwise equal to FLAT_R launches of
+    SLOTS // 2 rows (the serial tick's)."""
+    R, S = FLAT_R, SLOTS // 2
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def per_replica(fn, *args):
+        outs = [fn(*(a[r * S:(r + 1) * S].contiguous() for a in args))
+                for r in range(R)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return (torch.cat(outs),)
+
+    def check(name, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"{name} on {R} x {S} flattened rows differs from {R} "
+                 f"launches of {S} rows")
+
+    refs = rand(R * S, GATE_RES, GATE_RES, 3)
+    admit = rand(R * S) < 0.5
+    for frames in (rand(R * S, FRAME_RES, FRAME_RES, 3),
+                   (rand(R * S, FRAME_RES, FRAME_RES, 3) * 255).to(
+                       torch.uint8)):
+        dt = str(frames.dtype).split(".")[1]
+
+        def ingest(f, r):
+            return vo.ingest_frame(f, r, model_res=INPUT_RES,
+                                   gate_res=GATE_RES, block=BLOCK)
+        model, small, scores = ingest(frames, refs)
+        check(f"ingest_frame {dt}", (model, small, scores),
+              per_replica(ingest, frames, refs))
+        for res in (INPUT_RES, GATE_RES):
+            check(f"downscale {dt} {res} px", vo.downscale(frames, res),
+                  per_replica(lambda f: vo.downscale(f, res), frames))
+        check("block_sad", vo.block_sad(refs, small, BLOCK),
+              per_replica(lambda r, f: vo.block_sad(r, f, BLOCK), refs,
+                          small))
+        for pool in (torch.float32, torch.bfloat16):
+            batch = rand(R * S, INPUT_RES, INPUT_RES, 3).to(pool)
+            check(f"scatter_admit {dt} pool {pool}",
+                  vo.scatter_admit(batch, model, refs, small, admit),
+                  per_replica(vo.scatter_admit, batch, model, refs, small,
+                              admit))
+    print(f"fused launches: ingest_frame, scatter_admit (fp32 and bf16 "
+          f"pools), downscale ({INPUT_RES} and {GATE_RES} px) and "
+          f"block_sad on {R} x {S} flattened rows ({FRAME_RES} px frames, "
+          f"fp32 and uint8) bitwise equal to {R} launches of {S} rows",
+          flush=True)
+
+
+def mixed_tier_scenario():
+    """``tests/test_torch_fleet_step.py``'s three-group fleet: base, low
+    and frugal replicas (three model geometries, a bf16 pool), the tier
+    director present but quiescent."""
+    from repro_torch.simulate import ReplicaSpec, Scenario, VehicleProfile
+    from repro_torch.simulate.scenario import TierPlanSpec
+    return Scenario(
+        name="mixed_tier_inline", seed=77, ticks=40,
+        replicas=(ReplicaSpec("a", tier="base"), ReplicaSpec("b", tier="low"),
+                  ReplicaSpec("c", tier="frugal")),
+        profiles=(VehicleProfile(duplicate_prob=0.25),),
+        initial_vehicles=3, join_rate=0.3, leave_rate=0.05, max_vehicles=8,
+        tiers=TierPlanSpec(down_pressure=1e9, up_slack=-1.0,
+                           scale_out_pressure=1e9))
+
+
+def run_fused(torch, label, scenario, dev, need, **kw):
+    """:func:`run_scenario_counted` through the fused tick; fails unless
+    it issued exactly one fused call for each tick that staged a frame."""
+    out = run_scenario_counted(torch, f"{label} fused", scenario, dev, need,
+                               parallel=True, **kw)
+    calls, work = out[1].gw._fleet.dispatches, out[5]
+    if calls != work or not work:
+        fail(f"{label}: {calls} fused calls for {work} ticks with work")
+    return out
+
+
+def vision_launches(launches):
+    return {k: launches.get(k, 0) for k in
+            ("ingest_frame", "scatter_admit", "downscale", "block_sad")}
+
+
+def fused_fleet(torch, dev, card, root, serial_launches, failover_digest):
+    """Phase 14 (see the module docstring)."""
+    from repro_torch.kernels import vision_ops as vo
+    from repro_torch.obs.probes import jit_cache_entries
+    from repro_torch.simulate import get_scenario
+    gate_kernels = ("downscale", "block_sad")
+
+    flattened_launches(torch, vo, dev)                              # (a)
+
+    with open(os.path.join(root, GOLDEN_CHURN)) as f:               # (b)
+        golden = json.load(f)
+    cases = (("golden_churn", get_scenario("golden_churn"), gate_kernels,
+              None),
+             ("pallas_ingest", get_scenario("pallas_ingest"),
+              ("ingest_frame", "scatter_admit"), PALLAS_INGEST_DIGEST),
+             ("mixed_serving", get_scenario("mixed_serving"),
+              gate_kernels + ("paged_decode", "paged_flash"),
+              MIXED_SERVING_DIGEST),
+             # its event plane emits the models' flags: the stacked
+             # forward must flag as the serial one did in phase 13 (d)
+             ("token_failover", get_scenario("token_failover"),
+              gate_kernels + ("paged_decode", "paged_flash"),
+              failover_digest))
+    for label, scenario, need, want in cases:
+        res, runner, _, _, launches, work = run_fused(torch, label, scenario,
+                                                      dev, need)
+        if want is None:
+            check_golden(f"{label} fused", res, golden)
+        elif res.digest != want:
+            fail(f"{label} fused digest {res.digest} != {want}")
+        print(f"{label} fused: digest {res.digest[:8]}… as pinned; "
+              f"{runner.gw._fleet.dispatches} fused calls for {work} ticks "
+              f"with work; kernels 1-4 fused {vision_launches(launches)}, "
+              f"serial {vision_launches(serial_launches[label])}",
+              flush=True)
+    mixed = mixed_tier_scenario()
+    serial, _, _, _, s_launches, _ = run_scenario_counted(
+        torch, "mixed tier serial", mixed, dev, gate_kernels)
+    res, runner, _, _, launches, work = run_fused(torch, "mixed tier", mixed,
+                                                  dev, gate_kernels)
+    groups = len(runner.gw._fleet._members)
+    if groups != 3 or res.digest != serial.digest \
+            or res.summary != serial.summary:
+        fail(f"mixed tier: {groups} groups; fused {res.digest} != serial "
+             f"{serial.digest}")
+    print(f"mixed tier ({groups} groups): serial = fused {res.digest[:8]}…; "
+          f"{runner.gw._fleet.dispatches} fused calls for {work} ticks with "
+          f"work; kernels 1-4 fused {vision_launches(launches)}, serial "
+          f"{vision_launches(s_launches)}", flush=True)
+
+    host_params = host_params_of(torch)
+    for label, scenario, order, want in (
+            ("full-size (c)", full_scenario(), (False, True, True, False),
+             FULL_DIGEST),
+            (f"wide (d) {WIDE_REPLICAS} x {FULL_SLOTS}",
+             full_scenario(WIDE_REPLICAS, WIDE_INITIAL, WIDE_VEHICLES),
+             (False, True), None)):
+        ms, digests = {False: [], True: []}, set()
+        for parallel in order:
+            mode = "fused" if parallel else "serial"
+            res, runner, dt, gticks, launches, work = (
+                run_fused if parallel else run_scenario_counted)(
+                    torch, f"{label} {mode}" if not parallel else label,
+                    scenario, dev, ("ingest_frame", "scatter_admit"),
+                    vision_params=host_params)
+            warm, end = runner._cache_after_warmup, jit_cache_entries()
+            if warm != end:
+                fail(f"{label} {mode}: first-use builds grew after warmup: "
+                     f"{warm} -> {end}")
+            ms[parallel].append(dt * 1e3 / gticks)
+            digests.add(res.digest)
+            sm = res.summary
+            print(f"{label} {mode}: {dt * 1e3 / gticks:.3f} ms per gateway "
+                  f"tick over {gticks} ticks ({work} with work); "
+                  f"{sm['off'] / dt:.1f} offered, {sm['adm'] / dt:.1f} "
+                  f"processed frames/s; jit_cache_entries {warm} at warmup, "
+                  f"{end} at the end; kernels 1-4 "
+                  f"{vision_launches(launches)} on {card}", flush=True)
+        if len(digests) != 1 or (want is not None and digests != {want}):
+            fail(f"{label}: digests {sorted(digests)} (want {want})")
+        print(f"{label}: serial = fused digest {digests.pop()[:8]}…; ms per "
+              f"gateway tick serial {ms[False]}, fused {ms[True]} on {card}",
+              flush=True)
 
 
 def main() -> int:
@@ -1921,8 +2156,14 @@ def main() -> int:
     phase_done(12, "recurrent card vs CPU")
 
     # ---- phase 13: the fleet scenarios on the card ------------------------
-    fleet_scenarios(torch, dev, card, os.path.dirname(src))
+    serial_launches, failover = fleet_scenarios(torch, dev, card,
+                                                os.path.dirname(src))
     phase_done(13, "fleet scenarios")
+
+    # ---- phase 14: the fused fleet tick on the card -----------------------
+    fused_fleet(torch, dev, card, os.path.dirname(src), serial_launches,
+                failover)
+    phase_done(14, "fused fleet tick")
     print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)

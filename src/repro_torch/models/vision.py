@@ -25,6 +25,13 @@ are kept explicitly:
     ``(B, g*g*A, C+4)`` reshape, or the anchors would scramble while every
     shape still matched.
 
+The fused fleet tick runs a tier group's R replicas at once
+(:func:`analyse_outer_stacked`, :func:`analyse_inner_stacked`): their
+weights laid out once (:func:`stack_params`), their channels side by side
+in one batch in channels-last memory, each layer one grouped convolution
+with R times the layer's groups — what ``jax.vmap`` of the reference's
+forward folds the replicas into.
+
 Nothing here sets global numerics flags: cuDNN runs float32 convolutions
 in TF32 unless the caller turns that off (``chip_smoke.py`` does).
 """
@@ -84,6 +91,22 @@ def from_hwio(tree):
     return tree
 
 
+def stack_params(trees):
+    """R replicas' parameter trees (the same structure and shapes) as one
+    tree laid out for grouped convolutions, leaf by leaf: each weight
+    (O, C/groups, kh, kw) becomes (R*O, C/groups, kh, kw), replica r's
+    filters in block r, in channels-last memory (the layout the stacked
+    forward's activations take); each bias (R*O,).  The weights of one
+    tier group of the fused fleet tick, laid out once at its
+    construction."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_params([t[k] for t in trees]) for k in first}
+    out = torch.cat(list(trees))
+    return (out.contiguous(memory_format=torch.channels_last)
+            if out.ndim == 4 else out)
+
+
 def _same_pad(x: torch.Tensor, kh: int, kw: int, stride: int) -> torch.Tensor:
     """XLA ``"SAME"`` padding on an NCHW tensor: output ``ceil(n/stride)``,
     total pad split low = total // 2, high = the rest."""
@@ -105,6 +128,16 @@ def _conv(p, x, stride=1, groups=1):
     return F.conv2d(x, w, p["b"].to(x.dtype), stride=stride, groups=groups)
 
 
+def _conv_stacked(p, x, R, stride=1, groups=1):
+    """R replicas' convolutions as one grouped convolution: x is
+    (B, R*C, H, W), replica r's channels in block r; p holds the
+    :func:`stack_params` layout, (R*O, C/groups, kh, kw) with R*groups
+    groups, so block r of the output is replica r's convolution."""
+    w = p["w"]
+    x = _same_pad(x, w.shape[2], w.shape[3], stride)
+    return F.conv2d(x, w, p["b"], stride=stride, groups=R * groups)
+
+
 def _relu6(x):
     return torch.clamp(x, 0.0, 6.0)
 
@@ -118,6 +151,39 @@ def _backbone(cfg: VisionConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         x = _relu6(_conv(p[f"dw{i}"], x, stride=stride, groups=chans[i - 1]))
         x = _relu6(_conv(p[f"pw{i}"], x))
     return x
+
+
+def _backbone_stacked(cfg: VisionConfig, p: dict, x: torch.Tensor,
+                      R: int) -> torch.Tensor:
+    """:func:`_backbone` for R replicas at once: (B, R*C, H, W) in and
+    out, every layer one grouped convolution (stacked weights)."""
+    chans = [int(c * cfg.width_mult) for c in cfg.channels]
+    x = _relu6(_conv_stacked(p["stem"], x, R, stride=2))
+    for i in range(1, len(chans)):
+        stride = 2 if i <= 3 else 1
+        x = _relu6(_conv_stacked(p[f"dw{i}"], x, R, stride=stride,
+                                 groups=chans[i - 1]))
+        x = _relu6(_conv_stacked(p[f"pw{i}"], x, R))
+    return x
+
+
+def _head_stacked(cfg: VisionConfig, p: dict, frames: torch.Tensor
+                  ) -> torch.Tensor:
+    """Backbone and head of R replicas on (R, B, res, res, 3) frames with
+    stacked weights ``p``: the replicas' channels side by side in one
+    batch of B, one grouped convolution per layer, in channels-last memory
+    (cuDNN runs grouped convolutions on NHWC data; NCHW data costs a
+    transpose before and after each).  Returns the head's NHWC output for
+    the R*B rows, replica-major — each row as the replica's own
+    :func:`_backbone` and head give it."""
+    R, B, H, W, C = frames.shape
+    x = (frames.permute(1, 2, 3, 0, 4).reshape(B, H, W, R * C)
+         .permute(0, 3, 1, 2))
+    y = _conv_stacked(p["head"], _backbone_stacked(cfg, p["backbone"], x, R),
+                      R)
+    _, RO, h, w = y.shape
+    return (y.permute(0, 2, 3, 1).reshape(B, h, w, R, RO // R)
+            .permute(3, 0, 1, 2, 4).reshape(R * B, h, w, RO // R))
 
 
 def backbone_apply(cfg: VisionConfig, p: dict, x: torch.Tensor
@@ -152,7 +218,12 @@ def detector_apply(cfg: VisionConfig, p: dict, frames: torch.Tensor):
     """
     feats = _backbone(cfg, p["backbone"], frames.permute(0, 3, 1, 2))
     # back to NHWC BEFORE the reshape: anchors are laid out (g, g, A, C+4)
-    raw = _conv(p["head"], feats).permute(0, 2, 3, 1)    # (B, g, g, A*(C+5))
+    return _detections(cfg, _conv(p["head"], feats).permute(0, 2, 3, 1))
+
+
+def _detections(cfg: VisionConfig, raw: torch.Tensor) -> dict:
+    """The detector head's NHWC output (B, g, g, A*(C+5)) as per-anchor
+    class probabilities and box offsets."""
     B, g = raw.shape[0], raw.shape[1]
     A, C = cfg.num_anchors, cfg.num_classes + 1
     raw = raw.reshape(B, g * g * A, C + 4)
@@ -222,7 +293,11 @@ def init_pose(cfg: VisionConfig, generator: torch.Generator,
 def pose_apply(cfg: VisionConfig, p: dict, frames: torch.Tensor):
     """frames: (B, res, res, 3) -> keypoints {"y","x","score"}: (B, K)."""
     feats = _backbone(cfg, p["backbone"], frames.permute(0, 3, 1, 2))
-    heat = _conv(p["head"], feats).permute(0, 2, 3, 1)   # (B, g, g, K)
+    return _keypoints(_conv(p["head"], feats).permute(0, 2, 3, 1))
+
+
+def _keypoints(heat: torch.Tensor) -> dict:
+    """Keypoints of the pose head's NHWC heatmaps (B, g, g, K)."""
     B, g, _, K = heat.shape
     flat = heat.reshape(B, g * g, K)
     idx = torch.argmax(flat, dim=1)                      # (B, K), first max
@@ -329,3 +404,30 @@ def analyse_inner(cfg: VisionConfig, params: dict, frames: torch.Tensor):
     x = downscale(frames.to(torch.float32), cfg.input_res)
     kp = pose_apply(cfg, params, x)
     return flag_distraction(kp), kp
+
+
+@torch.no_grad()
+def analyse_outer_stacked(cfg: VisionConfig, params: dict,
+                          frames: torch.Tensor):
+    """:func:`analyse_outer` for one tier group of the fused fleet tick:
+    (R, B, H, W, 3) frames, ``params`` stacked by :func:`stack_params`.
+    Returns (danger flags (R, B, N) bool, detections on the R*B rows)."""
+    R, B = frames.shape[:2]
+    x = downscale(frames.reshape(R * B, *frames.shape[2:]).to(torch.float32),
+                  cfg.input_res)
+    raw = _head_stacked(cfg, params, x.reshape(R, B, *x.shape[1:]))
+    det = decode_detections(cfg, _detections(cfg, raw))
+    return flag_hazards(det).reshape(R, B, -1), det
+
+
+@torch.no_grad()
+def analyse_inner_stacked(cfg: VisionConfig, params: dict,
+                          frames: torch.Tensor):
+    """:func:`analyse_inner` for one tier group: (R, B, H, W, 3) frames,
+    stacked ``params``.  Returns (distracted (R, B) bool, keypoints on the
+    R*B rows)."""
+    R, B = frames.shape[:2]
+    x = downscale(frames.reshape(R * B, *frames.shape[2:]).to(torch.float32),
+                  cfg.input_res)
+    kp = _keypoints(_head_stacked(cfg, params, x.reshape(R, B, *x.shape[1:])))
+    return flag_distraction(kp).reshape(R, B), kp

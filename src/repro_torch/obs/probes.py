@@ -73,6 +73,11 @@ def register_runtime_gauges(metrics: MetricsRegistry,
     ).set_function(lambda: sum(
         len(st.pending) for r in gw.live_replicas()
         for st in r.streams.values()))
+    metrics.gauge(
+        "fleet_fused_dispatches",
+        "fused fleet-tick calls issued (1 per tick with work, by the "
+        "fleet_step contract)",
+    ).set_function(lambda: gw._fleet.dispatches if gw._fleet else 0)
     if getattr(gw, "tiering", None) is not None:
         director = gw.tiering
 

@@ -43,7 +43,9 @@ Where the port departs from the reference package's runner:
     plane's hazard/distraction events do; gate decisions, deadline trims
     and virtual-clock costs do not.
   * :func:`warm_kernels` replaces the reference's ``warm_jits``.
-  * ``parallel=True`` (the fused fleet tick) is not ported and raises.
+  * ``parallel=True`` drives the fleet through the fused fleet tick
+    (``streams.fleet_step``); its only ``fleet_mode`` is ``"vmap"``
+    (``"shard_map"`` raises: one card has no replica mesh).
 """
 from __future__ import annotations
 
@@ -289,12 +291,14 @@ def build_token_replicas(scenario: Scenario, *, device=None,
 
 
 def build_fleet(scenario: Scenario, *, parallel: bool = False,
+                fleet_mode: Optional[str] = None,
                 metrics=None, tracer=None, device=None,
                 vision_params: Optional[VisionParams] = None,
                 token_params=None) -> FleetGateway:
     """Instantiate the real engine replicas (virtual clocks, shared
     ledger) and the gateway, exactly as a serving deployment would.
-    ``parallel=True`` (the fused fleet tick) raises: it is not ported."""
+    ``parallel=True`` builds the gateway with the fused fleet tick
+    (``streams.fleet_step``) — bit-identical traces on virtual clocks."""
     device = resolve_device(device)
     tiered = scenario.tiers is not None
     replicas = []
@@ -345,11 +349,11 @@ def build_fleet(scenario: Scenario, *, parallel: bool = False,
             DedupSink(), metrics=metrics)
     if scenario.cells is not None:
         return _build_region(scenario, replicas, events=events,
-                             parallel=parallel, metrics=metrics,
-                             tracer=tracer)
+                             parallel=parallel, fleet_mode=fleet_mode,
+                             metrics=metrics, tracer=tracer)
     gw = FleetGateway(replicas, deadline_ms=scenario.deadline_ms,
                       overcommit=scenario.overcommit,
-                      parallel=parallel,
+                      parallel=parallel, fleet_mode=fleet_mode,
                       token_replicas=build_token_replicas(
                           scenario, device=device,
                           token_params=token_params),
@@ -366,7 +370,8 @@ def build_fleet(scenario: Scenario, *, parallel: bool = False,
 
 
 def _build_region(scenario: Scenario, replicas: List[VisionServeEngine],
-                  *, events, parallel: bool, metrics, tracer) -> RegionGateway:
+                  *, events, parallel: bool, fleet_mode: Optional[str],
+                  metrics, tracer) -> RegionGateway:
     """Hierarchical build path (``Scenario.cells``): group the already-
     constructed engines by ``ReplicaSpec.cell`` into CellGateways — each
     with its own aggregate-mode ledger and (when tiered) its own
@@ -402,7 +407,7 @@ def _build_region(scenario: Scenario, replicas: List[VisionServeEngine],
             overcommit=scenario.overcommit,
             ledger=Ledger(aggregate=cp.aggregate_ledgers,
                           rel_err=cp.rel_err),
-            parallel=parallel,
+            parallel=parallel, fleet_mode=fleet_mode,
             metrics=metrics, tracer=tracer, events=events,
             tiering=cell_tiering,
             standby=tuple(spec.name for spec, _ in members
@@ -424,6 +429,7 @@ def _build_region(scenario: Scenario, replicas: List[VisionServeEngine],
 
 class ScenarioRunner:
     def __init__(self, scenario: Scenario, *, parallel: bool = False,
+                 fleet_mode: Optional[str] = None,
                  metrics=None, tracer=None, device=None,
                  vision_params: Optional[VisionParams] = None,
                  token_params=None) -> None:
@@ -433,6 +439,7 @@ class ScenarioRunner:
         self.metrics = metrics
         self.tracer = tracer
         self.gw = build_fleet(scenario, parallel=parallel,
+                              fleet_mode=fleet_mode,
                               metrics=metrics, tracer=tracer,
                               device=self.device,
                               vision_params=vision_params,
@@ -797,6 +804,7 @@ class ScenarioRunner:
 
 
 def run_scenario(scenario: Scenario, *, parallel: bool = False,
+                 fleet_mode: Optional[str] = None,
                  metrics=None, tracer=None, device=None,
                  vision_params: Optional[VisionParams] = None,
                  token_params=None) -> ScenarioResult:
@@ -804,8 +812,10 @@ def run_scenario(scenario: Scenario, *, parallel: bool = False,
     injected weights if given (see the module docstring).
     ``metrics``/``tracer`` attach an observability plane for the run —
     observe-only, so the trace digest is identical with or without them.
-    ``parallel=True`` raises: the fused fleet tick is not ported."""
-    return ScenarioRunner(scenario, parallel=parallel,
+    ``parallel=True`` drives the fleet through the fused fleet tick
+    instead of serial per-replica stepping (``tests/test_torch_fleet_step.
+    py`` pins the two to bit-identical trace digests)."""
+    return ScenarioRunner(scenario, parallel=parallel, fleet_mode=fleet_mode,
                           metrics=metrics, tracer=tracer, device=device,
                           vision_params=vision_params,
                           token_params=token_params).run()

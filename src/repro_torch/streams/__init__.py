@@ -12,10 +12,13 @@
   cells          hierarchical control plane: CellGateway meshes under a
                  RegionGateway — per-cell host paths, bounded region
                  rebalance, cross-cell handoff with full state travel
-
-The fused fleet tick (the reference's ``fleet_step``) is not ported yet.
+  fleet_step     the fused fleet tick: every replica's device work in one
+                 call a tick, one computation per tier group, the serial
+                 tick's host phases around it — FleetGateway(parallel=True)
 """
 from repro_torch.streams.cells import CellGateway, RegionGateway  # noqa: F401
+from repro_torch.streams.fleet_step import (FleetStep,  # noqa: F401
+                                            resolve_mode)
 from repro_torch.streams.filter import (GateStats, MotionGate,  # noqa: F401
                                         block_sad)
 from repro_torch.streams.gateway import (FleetGateway,  # noqa: F401

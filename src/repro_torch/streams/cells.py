@@ -10,8 +10,8 @@ hierarchy bounds every per-tick host path by *cell*, not fleet:
   * :class:`CellGateway` IS a FleetGateway (placement, backpressure,
     failure rebind, tiering — all unchanged) plus a cell name and cheap
     load readings.  Everything that was fleet-global — the capacity
-    scheduler scan, the TierDirector pressure scan — is now cell-local
-    by construction.
+    scheduler scan, the TierDirector pressure scan, the fused fleet
+    tick — is now cell-local by construction.
   * :class:`RegionGateway` places vehicles across cells by free capacity
     (an O(cells) scan over cached per-cell aggregates), routes
     ``push``/``leave``/``backlog`` through an O(1) vehicle->cell map,
@@ -133,6 +133,20 @@ class _RegionTieringView:
         return acts
 
 
+class _RegionFleetsView:
+    """`_fleet.dispatches` summed over the cells' fused steppers — the
+    runtime gauge and status snapshot read dispatch counts through the
+    gateway's ``_fleet`` attribute."""
+
+    def __init__(self, cells: Sequence[CellGateway]) -> None:
+        self._cells = cells
+
+    @property
+    def dispatches(self) -> int:
+        return sum(c._fleet.dispatches for c in self._cells
+                   if c._fleet is not None)
+
+
 class RegionGateway:
     """Places vehicle sessions across cells; hands off between them.
 
@@ -194,7 +208,9 @@ class RegionGateway:
         self.token_replicas: List = []
         self._token_by_name: Dict[str, object] = {}
         self.token_done: List = []
-        self._fleet = None          # the fused fleet tick is not ported
+        self._fleet = (_RegionFleetsView(self.cells)
+                       if any(c._fleet is not None for c in self.cells)
+                       else None)
 
     # ------------------------------------------------------------------
     # merged views (verification / display surfaces — never on hot paths)
@@ -412,7 +428,8 @@ class RegionGateway:
         one vehicle per inspected cell to the least-loaded cell, when
         the load-factor gap exceeds ``rebalance_margin`` and the target
         can take a pair.  All decisions read host-side counters only —
-        deterministic for a seed."""
+        deterministic for a seed, and identical under serial and fused
+        cell ticks."""
         n = len(self.cells)
         if n < 2:
             return []

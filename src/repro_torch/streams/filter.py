@@ -53,6 +53,26 @@ def block_sad(ref: torch.Tensor, frames: torch.Tensor, block: int = 8, *,
     return vision_ops.block_sad_plain(ref, frames, block)
 
 
+def gate_scores(refs: torch.Tensor, frames: torch.Tensor, *, gate_res: int,
+                block: int, use_kernels: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gate's device arithmetic on staged rows: normalize and
+    downscale (S, H, W, 3) ``frames`` to the gate resolution, score each
+    row against its reference.  Returns (gate frames (S, g, g, 3) fp32,
+    scores (S,) fp32).  Rows are independent, so the fused fleet tick
+    calls this on every replica's rows at once and gets each replica's
+    :meth:`MotionGate.admit` scores."""
+    if use_kernels:
+        if frames.dtype not in (torch.uint8, torch.float32):
+            # a bf16 tier's batch pool: the kernel reads uint8 or fp32,
+            # and the cast is exact, as the plain path's normalize is
+            frames = frames.to(torch.float32)
+        small = vision_ops.downscale(frames, gate_res)
+        return small, vision_ops.block_sad(refs, small, block=block)
+    small = downscale(vision_ops.normalize_plain(frames), gate_res)
+    return small, block_sad(refs, small, block)
+
+
 @dataclass
 class GateStats:
     offered: int = 0
@@ -137,17 +157,9 @@ class MotionGate:
         Returns (slots,) bool admit mask (subset of ``active``) and updates
         references, thresholds, and stats.
         """
-        if self.use_kernels:
-            if frames.dtype not in (torch.uint8, torch.float32):
-                # a bf16 tier's batch pool: the kernel reads uint8 or fp32,
-                # and the cast is exact, as the plain path's normalize is
-                frames = frames.to(torch.float32)
-            small = vision_ops.downscale(frames, self.gate_res)
-            scores = vision_ops.block_sad(self.refs, small, block=self.block)
-        else:
-            small = downscale(vision_ops.normalize_plain(frames),
-                              self.gate_res)
-            scores = block_sad(self.refs, small, self.block)
+        small, scores = gate_scores(self.refs, frames, gate_res=self.gate_res,
+                                    block=self.block,
+                                    use_kernels=self.use_kernels)
         admit = self.decide(scores.cpu().numpy(), active)
         mask = torch.as_tensor(admit, device=self.refs.device)
         self.refs = torch.where(mask[:, None, None, None], small, self.refs)

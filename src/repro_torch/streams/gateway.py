@@ -29,9 +29,10 @@ the paper's paired-download protocol, scaled out.  The gateway:
     thresholds, ordinals, and event spools survive) and activating /
     retiring ``standby`` replicas from sustained fleet pressure.
 
-The reference's mesh-parallel tick (``parallel=True``, its
-``streams/fleet_step.py``) is not ported yet: asking for it raises
-``NotImplementedError``, and every tick steps the replicas one by one.
+``parallel=True`` runs each tick through the fused fleet tick
+(``streams.fleet_step``): every live replica's device work in one call,
+with the serial tick's host phases around it — bit-identical to stepping
+the replicas one by one under virtual clocks.
 """
 from __future__ import annotations
 
@@ -132,6 +133,7 @@ class FleetGateway:
     def __init__(self, replicas: Sequence[VisionServeEngine], *,
                  deadline_ms: float = 0.0, overcommit: float = 1.5,
                  ledger: Optional[Ledger] = None, parallel: bool = False,
+                 fleet_mode: Optional[str] = None,
                  token_replicas: Sequence["ServeEngine"] = (),
                  metrics=None, tracer=None,
                  events: Optional["EventPlane"] = None,
@@ -195,16 +197,14 @@ class FleetGateway:
             w.queue_len = 10 ** 9
             if tiering is not None:
                 tiering.add_standby(sb)
-        # parallel=True is the fused fleet tick (every live replica's
-        # device work in one dispatch), which is not ported: refuse it
-        # rather than run the serial tick under its name, which would make
-        # a serial/parallel parity look held when nothing was compared
-        if parallel:
-            raise NotImplementedError(
-                "FleetGateway(parallel=True) needs the fused fleet tick "
-                "(streams/fleet_step.py), which is not ported yet: "
-                "ROADMAP.md queue 1, item 3")
+        # parallel=True fuses every live replica's device work into one
+        # call per tick (streams.fleet_step); host-side churn, placement
+        # and bookkeeping above are identical in both modes
+        self.parallel = bool(parallel)
         self._fleet = None
+        if self.parallel:
+            from repro_torch.streams.fleet_step import FleetStep
+            self._fleet = FleetStep(self.replicas, mode=fleet_mode)
 
         # token-serving replicas (ServeEngine) share the fleet ledger and
         # get their own capacity scheduler — token throughput (tokens/s)
@@ -592,9 +592,14 @@ class FleetGateway:
         the scheduler's capacity EWMAs (the HW_INFO -> measurement
         handoff).  Timing reads each replica's own clock, so a simulated
         replica's virtual speed profile flows into the same capacity
-        estimate a wall-clocked replica's real speed does.  Token replicas
-        (if any) step after the vision replicas; the return value counts
-        frames + tokens served.
+        estimate a wall-clocked replica's real speed does.
+
+        With ``parallel=True`` the same tick runs every live replica's
+        device work in one fused call (``streams.fleet_step``) — identical
+        host phases, identical accounting, bit-identical results under
+        virtual clocks.  Token replicas (if any) step after the vision
+        replicas in both modes; the return value counts frames + tokens
+        served.
 
         ``pump_events=False`` skips the event-plane delivery round: the
         hierarchical control plane (``streams.cells``) shares ONE plane
@@ -603,20 +608,26 @@ class FleetGateway:
         round counter and the delivery cadence."""
         if self.tiering is not None:
             # the tier control round runs before any engine work, reading
-            # only host state
+            # only host state — so serial and fused fleets make identical
+            # migration/scale decisions
             self.tiering.step(self)
-        done = 0
-        for r in self.live_replicas():
-            t0 = r.clock.now_s()
-            n = r.step()
-            dt_ms = (r.clock.now_s() - t0) * 1000.0
-            if n:
-                self.sched.by_name(r.name).observe(n, dt_ms)
-            done += n
-        if self.token_replicas:
-            done += self._tick_tokens()
+        if self._fleet is not None:
+            done = self._fleet.tick(self)
+        else:
+            done = 0
+            for r in self.live_replicas():
+                t0 = r.clock.now_s()
+                n = r.step()
+                dt_ms = (r.clock.now_s() - t0) * 1000.0
+                if n:
+                    self.sched.by_name(r.name).observe(n, dt_ms)
+                done += n
+            if self.token_replicas:
+                done += self._tick_tokens()
         if self.events is not None and pump_events:
             # one delivery round per gateway tick, after all engine work
+            # — shared by both modes so attaching the plane cannot fork
+            # serial and fused traces
             self.events.pump()
         return done
 

@@ -37,9 +37,15 @@ Weights are injected (``params=``, e.g. converted from the reference by
 seam is ``None`` unless a gateway with an event plane
 (``repro_torch.events``) attaches one: then hazard, distraction and
 deadline-miss events leave from the host phases, and a stream's spool,
-cooldowns and evidence ring travel with it on detach/adopt.  The
-fleet-parallel tick's host-staging mode and ``commit_class`` are not
-ported yet.
+cooldowns and evidence ring travel with it on detach/adopt.
+
+The fused fleet tick (``streams.fleet_step``) runs the host phases here
+around one device call for the whole fleet: :meth:`enable_host_staging`
+makes the plain path stage frames into the host buffer too (the fleet
+makes each engine's buffer a row of one group buffer; such an engine is
+not stepped serially), and
+:meth:`commit_class` applies the accounting :meth:`_step_class` applies
+after its own device work.
 """
 from __future__ import annotations
 
@@ -160,16 +166,12 @@ class VisionServeEngine(EngineCore):
         self.batches = {kind: torch.zeros(shape, dtype=batch_dtype,
                                           device=self.device)
                         for kind in (OUTER, INNER)}
+        # host staging: the kernel path always, the plain path once
+        # enable_host_staging() is called (the fused fleet tick does)
+        self._host_staging = False
+        self._upload_done: Optional[torch.cuda.Event] = None
         if use_kernels:
-            # host staging buffer: lanes write rows, one upload per class
-            # per tick; stale inactive rows are masked by `active`.  On the
-            # card it is pinned and uploaded asynchronously, so the next
-            # staging write first waits for the upload that reads it.
-            self._stage_t = torch.zeros(
-                (slots, frame_res, frame_res, 3), dtype=torch.float32,
-                pin_memory=self.device.type == "cuda")
-            self._stage = self._stage_t.numpy()
-            self._upload_done: Optional[torch.cuda.Event] = None
+            self._make_stage()
             # the gateless scatter still flows through scatter_admit; it
             # needs a (fixed-shape) reference operand no gate holds
             self._null_refs = torch.zeros((slots, 1, 1, 3),
@@ -208,6 +210,35 @@ class VisionServeEngine(EngineCore):
         self.frame_cost_ms = self.unit_cost_ms
         self.results: Dict[str, Deque[bool]] = {}
         self.frames_processed = 0
+
+    def _make_stage(self) -> None:
+        """The host staging buffer: lanes write rows, one upload per class
+        per tick; stale inactive rows are masked by ``active``.  On the
+        card it is pinned and uploaded asynchronously, so the next staging
+        write first waits for the upload that reads it."""
+        self._stage_t = torch.zeros(
+            (self.slots, self.frame_res, self.frame_res, 3),
+            dtype=torch.float32, pin_memory=self.device.type == "cuda")
+        self._stage = self._stage_t.numpy()
+
+    def enable_host_staging(self) -> None:
+        """Stage popped frames into the host buffer (the kernel path's
+        layout) on the plain path too: the fused fleet tick uploads each
+        tier group's staged rows once a tick and selects them into the
+        batches on the device.  Such an engine is stepped only by that
+        tick; :meth:`step` refuses it on the plain path."""
+        if not hasattr(self, "_stage_t"):
+            self._make_stage()
+        self._host_staging = True
+
+    def _upload_stage(self) -> torch.Tensor:
+        """One upload of the staging buffer (a copy on the CPU too: the
+        buffer is rewritten next tick)."""
+        staged = self._stage_t.to(self.device, non_blocking=True, copy=True)
+        if self.device.type == "cuda":
+            self._upload_done = torch.cuda.Event()
+            self._upload_done.record()
+        return staged
 
     # ------------------------------------------------------------------
     # stream lifecycle
@@ -467,11 +498,15 @@ class VisionServeEngine(EngineCore):
     def stage_class(self, kind: str) -> np.ndarray:
         """Deadline-trim and pop one frame per bound ``kind`` stream into
         the staging layout (batch rows on the plain path, the host staging
-        buffer on the kernel path).  Returns the (slots,) active mask."""
+        buffer on the kernel path or with host staging).  Returns the
+        (slots,) active mask.  The device work on the staged frames
+        happens in :meth:`_step_class` serially, or in one fused fleet
+        call (``streams.fleet_step``)."""
+        staging = self.use_kernels or self._host_staging
         with self.tspan("stage", cls=kind):
             batch = self.batches[kind]
             active = np.zeros(self.slots, bool)
-            if self.use_kernels and self._upload_done is not None:
+            if staging and self._upload_done is not None:
                 # the last upload from the staging buffer may still be
                 # reading it
                 self._upload_done.synchronize()
@@ -485,7 +520,7 @@ class VisionServeEngine(EngineCore):
                                               st.pending[0])
                 frame = st.pending.popleft()
                 st.served_since_bind += 1  # gated frames consume quantum too
-                if self.use_kernels:
+                if staging:
                     self._stage[lane] = frame
                 else:
                     batch[lane].copy_(torch.from_numpy(
@@ -497,6 +532,11 @@ class VisionServeEngine(EngineCore):
         active = self.stage_class(kind)
         if not active.any():
             return 0
+        if self._host_staging and not self.use_kernels:
+            # its staged rows reach the batches only in the fused call
+            raise RuntimeError(
+                f"{self.name}: a host-staging engine is stepped by its "
+                f"fused fleet tick (streams.fleet_step), not serially")
         batch = self.batches[kind]
         gate = self.gates[kind]
         if self.use_kernels:
@@ -528,11 +568,16 @@ class VisionServeEngine(EngineCore):
         return distracted.cpu().numpy()
 
     def _finish_class(self, admit: np.ndarray, per_frame: np.ndarray,
-                      t0_s: float, n_admit: int) -> int:
-        """Post-forward accounting: clock charge, cost EWMAs (core
-        ``finish_dispatch``), per-stream counters/flags/timestamps."""
+                      t0_s: float, n_admit: int,
+                      dt_override_s: Optional[float] = None) -> int:
+        """Post-forward accounting shared by the serial and fleet paths:
+        clock charge, cost EWMAs (core ``finish_dispatch``), per-stream
+        counters/flags/timestamps.  ``dt_override_s`` carries a fused
+        fleet replica's share of the measured fused wall time (a virtual
+        clock never passes it — its charge IS the cost)."""
         with self.tspan("commit", n=n_admit):
-            dt = self.finish_dispatch(n_admit, t0_s, FRAME)
+            dt = self.finish_dispatch(n_admit, t0_s, FRAME,
+                                      dt_override_s=dt_override_s)
 
             now = self.clock.now_s()
             for lane in np.nonzero(admit)[0]:
@@ -553,16 +598,37 @@ class VisionServeEngine(EngineCore):
             self.frames_processed += n_admit
         return n_admit
 
+    def commit_class(self, kind: str, active: np.ndarray, admit: np.ndarray,
+                     per_frame: np.ndarray,
+                     dt_share_s: Optional[float] = None) -> int:
+        """Host bookkeeping for one class of a fused fleet tick.
+
+        The device work (gate score, admit threshold, model forward) ran
+        inside the fused call (``streams.fleet_step``); this applies
+        exactly the accounting :meth:`_step_class` applies after its own
+        device work — the gate controller's replay, gated counters, clock
+        charges, per-stream stats — so the two paths stay bit-identical
+        under virtual clocks."""
+        gate = self.gates[kind]
+        if gate is not None and active.any():
+            gate.commit_decision(active, admit)
+        for lane in np.nonzero(active & ~admit)[0]:
+            self.lanes[lane].gated += 1
+        n_admit = int(admit.sum())
+        if n_admit == 0:
+            return 0
+        self.tinstant("admit", cls=kind, n=n_admit)
+        t0 = self.clock.now_s()
+        return self._finish_class(admit, per_frame, t0, n_admit,
+                                  dt_override_s=dt_share_s)
+
     def _ingest_kernels(self, batch: torch.Tensor,
                         gate: Optional[MotionGate], active: np.ndarray):
         """Kernel ingest: one upload of the staged frames, one
         ``ingest_frame`` pass scores + downscales them, the host thresholds,
         one ``scatter_admit`` commits admitted rows into the batch and the
         gate references."""
-        staged = self._stage_t.to(self.device, non_blocking=True, copy=True)
-        if self.device.type == "cuda":
-            self._upload_done = torch.cuda.Event()
-            self._upload_done.record()
+        staged = self._upload_stage()
         if gate is not None:
             model, small, scores = vision_ops.ingest_frame(
                 staged, gate.refs, model_res=self.input_res,

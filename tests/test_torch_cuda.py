@@ -907,3 +907,123 @@ def test_warm_kernels_keeps_first_use_builds_flat(dev, name):
     assert runner._cache_after_warmup == warmed == jit_cache_entries()
     ScenarioRunner(s, device=dev).run()
     assert jit_cache_entries() == warmed
+
+
+# ---------------------------------------------------------------------------
+# the fused fleet tick on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+def test_vision_kernels_on_flattened_rows_equal_per_replica_launches(dev,
+                                                                     u8):
+    """The fused tick's launches: 4 replicas x 16 slots in one launch of
+    each vision kernel give each replica's rows bit for bit as four
+    launches of 16 rows do (256 px frames to 192 and 32 px)."""
+    R, S, H, m, g = 4, 16, 256, 192, 32
+    frames = _rand((R * S, H, H, 3), np.uint8 if u8 else np.float32,
+                   seed=0).to(dev)
+    refs = _rand((R * S, g, g, 3), seed=1).to(dev)
+    admit = torch.from_numpy(
+        np.random.default_rng(2).random(R * S) < 0.5).to(dev)
+
+    def per_replica(fn, *args):
+        outs = [fn(*(a[r * S:(r + 1) * S].contiguous() for a in args))
+                for r in range(R)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return (torch.cat(outs),)
+
+    def same(a, b):
+        a = a if isinstance(a, tuple) else (a,)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def ingest(f, r):
+        return tvo.ingest_frame(f, r, model_res=m, gate_res=g, block=8)
+    tvo.reset_launches()
+    model, small, scores = ingest(frames, refs)
+    same((model, small, scores), per_replica(ingest, frames, refs))
+    for res in (m, g):
+        same(tvo.downscale(frames, res),
+             per_replica(lambda f: tvo.downscale(f, res), frames))
+    same(tvo.block_sad(refs, small), per_replica(tvo.block_sad, refs, small))
+    for pool in (torch.float32, torch.bfloat16):
+        batch = _rand((R * S, m, m, 3), seed=3).to(dev).to(pool)
+        same(tvo.scatter_admit(batch, model, refs, small, admit),
+             per_replica(tvo.scatter_admit, batch, model, refs, small,
+                         admit))
+    assert all(n > 0 for n in tvo.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_stacked_forward_flags_equal_per_replica_on_card(dev, no_tf32):
+    """One grouped convolution a layer (the fused tick's forward) gives
+    every replica's flags as its own forward does, on the card; outputs
+    within TIGHT.  The detector head is scaled up so hazards fire."""
+    from repro_torch.configs.eda_vision import detector_config, pose_config
+    from repro_torch.models import vision as V
+    R, B = 4, 16
+    fired = [0, 0]
+    for res in (32, 192):
+        dc, pc = detector_config(res), pose_config(res)
+        dps, pps = [], []
+        for r in range(R):
+            gen = torch.Generator().manual_seed(r)
+            dp = V.init_detector(dc, gen, "cpu")
+            dp["head"]["w"] = dp["head"]["w"] * 100.0
+            dps.append(tree_to(dp, dev))
+            pps.append(tree_to(V.init_pose(pc, gen, "cpu"), dev))
+        frames = _rand((R, B, res, res, 3), seed=res).to(dev)
+        flags, det = V.analyse_outer_stacked(dc, V.stack_params(dps), frames)
+        dist, kp = V.analyse_inner_stacked(pc, V.stack_params(pps), frames)
+        for r in range(R):
+            rows = slice(r * B, (r + 1) * B)
+            f1, d1 = V.analyse_outer(dc, dps[r], frames[r])
+            g1, k1 = V.analyse_inner(pc, pps[r], frames[r])
+            assert torch.equal(flags[r], f1) and torch.equal(dist[r], g1)
+            for key in ("score", "h", "w"):
+                _close(det[key][rows], d1[key], exact=False)
+            for key in ("y", "x", "score"):
+                _close(kp[key][rows], k1[key], exact=False)
+            fired[0] += int(f1.any(dim=1).sum())
+            fired[1] += int(g1.sum())
+    assert fired[0] > 0 and fired[1] > 0
+
+
+@pytest.mark.cuda
+def test_golden_churn_fused_equals_serial_on_card(dev):
+    """The fused tick on the card: the golden digest and summary as the
+    serial tick gives them, one fused call for each tick that staged a
+    frame, the gates' kernels launched."""
+    import json
+    import pathlib
+
+    from repro_torch.simulate import ScenarioRunner, get_scenario
+    golden = json.loads((pathlib.Path(__file__).parent / "golden"
+                         / "fleet_scenario_v1.json").read_text())
+    s = get_scenario("golden_churn")
+    serial = ScenarioRunner(s, device=dev).run()
+    runner = ScenarioRunner(s, device=dev, parallel=True)
+    busy = []
+    for r in runner.gw.replicas:
+        def staged(kind, _stage=r.stage_class):
+            active = _stage(kind)
+            busy.append(bool(active.any()))
+            return active
+        r.stage_class = staged
+    tick, work = runner.gw.tick, [0]
+
+    def counted_tick(**kw):
+        busy.clear()
+        out = tick(**kw)
+        work[0] += any(busy)
+        return out
+    runner.gw.tick = counted_tick
+    tvo.reset_launches()
+    fused = runner.run()
+    assert serial.violations == [] and fused.violations == []
+    assert tvo.LAUNCHES["downscale"] > 0 and tvo.LAUNCHES["block_sad"] > 0
+    assert serial.digest == fused.digest == golden["digest"]
+    assert serial.summary == fused.summary
+    assert runner.gw._fleet.dispatches == work[0] > 0

@@ -11,8 +11,8 @@ seeded noise with exact duplicates, so the gate decisions sit far from
 their thresholds and the records read no model output.
 
 Also here: the synthetic dash-cam clips the ``dashcam`` scenes cycle are
-the reference's bit for bit, and ``FleetGateway(parallel=True)`` raises
-instead of running the serial tick under the parallel tick's name.
+the reference's bit for bit.  The fused fleet tick (``parallel=True``) is
+held in ``tests/test_torch_fleet_step.py``.
 """
 import dataclasses
 
@@ -281,16 +281,6 @@ def test_gateway_lifecycle_equals_the_reference(reference):
     assert got[1] == want[1]
     assert sum(r["frames_gated"] for r in got[1]) > 0
     assert sum(r["frames_deadline_dropped"] for r in got[1]) > 0
-
-
-def test_parallel_gateway_raises():
-    engines = _engines("port", [("r0", 2, None, 1.0), ("r1", 2, None, 1.0)])
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        PS.FleetGateway(engines, parallel=True)
-    from repro_torch.simulate import get_scenario, run_scenario
-    with pytest.raises(NotImplementedError, match="fleet_step"):
-        run_scenario(get_scenario("golden_churn", ticks=2), device="cpu",
-                     parallel=True)
 
 
 # ---------------------------------------------------------------------------

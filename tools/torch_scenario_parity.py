@@ -3,14 +3,17 @@
 (CPU) and print each pair of trace digests.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/torch_scenario_parity.py \
-        [--ticks 120] [--only NAME ...]
+        [--ticks 120] [--only NAME ...] [--parallel]
 
 Every scenario runs at most ``--ticks`` ticks (``golden_churn`` always its
 whole 150, the pinned length), as the reference's tier-1 test caps them;
 ``soak_churn`` and ``city_scale`` are left out unless named.  The port is
 given the reference runner's weights (``repro_torch.convert``), so the
 scenarios whose traces read model outputs (the event plane's hazard and
-distraction events) are held too.  Prints one line a scenario (digests,
+distraction events) are held too.  ``--parallel`` runs the port's fleet
+through its fused fleet tick (``FleetGateway(parallel=True)``) against the
+reference's serial runner, whose serial and fused ticks give one digest
+(its ``tests/test_fleet_step.py``).  Prints one line a scenario (digests,
 violations, seconds on each side, the first differing trace line if any)
 and exits non-zero if any pair differs.  Needs JAX: the CPU only.
 """
@@ -47,6 +50,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=120)
     ap.add_argument("--only", nargs="*", default=None)
+    ap.add_argument("--parallel", action="store_true",
+                    help="the port through its fused fleet tick")
     args = ap.parse_args()
     from repro import simulate as J
     from repro_torch import simulate as P
@@ -63,12 +68,14 @@ def main() -> int:
         t1 = time.perf_counter()
         vision, token = _weights(runner)
         got = P.run_scenario(P.get_scenario(name, **over), device="cpu",
+                             parallel=args.parallel,
                              vision_params=vision, token_params=token)
         t2 = time.perf_counter()
         same = got.digest == want.digest
         bad += not same
         line = (f"{name}: ticks {want.scenario.ticks} reference "
-                f"{want.digest[:16]} port {got.digest[:16]} "
+                f"{want.digest[:16]} port{' fused' * args.parallel} "
+                f"{got.digest[:16]} "
                 f"{'equal' if same else 'DIFFER'}; violations "
                 f"{len(want.violations)}/{len(got.violations)}; "
                 f"{t1 - t0:.1f} s / {t2 - t1:.1f} s")
