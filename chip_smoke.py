@@ -155,6 +155,40 @@ wall seconds):
                cell widened to 8 replicas x 16 slots (4x its vehicles):
                serial = fused digests, ms per gateway tick both ways,
                ``jit_cache_entries`` flat from warmup to the end of each.
+ 15. eda       the paper's EDA master runtime (``core/runtime.py``): (a)
+               ``examples/quickstart.py``'s case study (3 phones, 2 s
+               videos, 50 pairs) through ``SimExecutor``: the ledger
+               digest pinned in ``tests/test_torch_runtime.py``; (b)
+               ``examples/torch_eda_dashcam_serve.py``'s ``RealExecutor``
+               on the card: the full-depth detector and pose models at
+               192 px on 256 px ``DashCamSource`` frames at 30 fps, 1 s
+               videos, findx2pro master + pixel6 + oneplus8, segmentation
+               and dynamic ESD, 8 pairs: the ledger table, each device's
+               mean turnaround decomposition, the near-real-time
+               fraction; every video merged and the first 2 pairs' flags
+               equal to the CPU's with the same host-drawn weights; (c)
+               ``device_prefetch`` of 32 frame pairs: each equal to its
+               host batch, the copy's GB/s.
+ 16. new archs (a) card vs CPU as phase 8, at 2 layers, fp32, for
+               granite-moe-1b-a400m (paged) and starcoder2-7b (paged) at
+               full width, and qwen1.5-32b (paged), command-r-plus-104b
+               and deepseek-v2-236b (contiguous) at their ``reduced()``
+               widths (full width would draw 10-25 GB of fp32 weights
+               on the host and run them on the CPU); (b) drains at full
+               width, bf16, weights drawn on the card: granite (24
+               layers, paged) and starcoder2-7b (32 layers, paged then
+               contiguous) with phase 7's 16 requests, qwen1.5-32b (8
+               layers, paged), command-r-plus-104b (4 layers,
+               contiguous) and deepseek-v2-236b (3 layers: one dense,
+               two MoE of 160 experts; contiguous, MLA: no port kernel)
+               with 8 of them; each drain's counts zeroed before it and
+               read after, the layout's two kernels launched and no
+               other; decode ms/tick, tokens/s, TTFT and launches printed;
+               (c) kernels 5-8 at the new heads (D 64 G 2; D 128 G 9 with
+               the 4096 window, G 1, G 12) against their plain versions
+               (fp32 TIGHT, bf16 LOOSE) and timed beside SDPA and the
+               bound.  The ``kernels`` line's attention launches are
+               phase 7's plus these drains'.
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
 global flags): the flags and the sampled tokens are threshold and argmax
@@ -253,6 +287,40 @@ FULL_DIGEST = ("48b9bddad799edf3b18b518980b51f95"
                "b06fb1063af03286d493252a931ca3a9")
 WIDE_REPLICAS, WIDE_INITIAL, WIDE_VEHICLES = 8, 12, 64
 FLAT_R = 4                                # (a): replicas of SLOTS // 2
+# phase 15: the ledger digest of examples/quickstart.py's case study (3
+# phones, 2 s videos, 50 pairs) through SimExecutor, the reference's too
+# (tests/test_torch_runtime.py pins both to this constant)
+CASE_STUDY_DIGEST = ("08acd776db08d50cdecf32f23f5f80e9"
+                     "7a739924056e020b4d83ab290392c822")
+# (b): the real executor's run; the CPU checks the first EDA_CHECKED pairs'
+# flags; (c): frame pairs through device_prefetch
+EDA_FPS, EDA_PAIRS, EDA_CHECKED, PREFETCH_BATCHES = 30, 8, 2, 32
+# phase 16: kernels 5-8 at the new configs' heads (q heads, kv heads, D,
+# window, the kernels their drains launch)
+NEW_HEADS = {
+    "granite-moe-1b-a400m's heads (G 2)": (16, 8, 64, 0,
+                                           ("paged_decode", "paged_flash")),
+    "starcoder2-7b's heads (G 9)": (36, 4, 128, 4096,
+                                    ("paged_decode", "paged_flash", "flash",
+                                     "decode")),
+    "qwen1.5-32b's heads (G 1)": (40, 40, 128, 0,
+                                  ("paged_decode", "paged_flash")),
+    "command-r-plus-104b's heads (G 12)": (96, 8, 128, 0,
+                                           ("flash", "decode")),
+}
+# (a): card vs CPU at 2 layers, fp32: (arch, layouts, reduced width);
+# (b): drains at full width: (arch, layers or None for full depth,
+# layouts, requests)
+NEW_CPU = (("granite-moe-1b-a400m", (True,), False),
+           ("starcoder2-7b", (True,), False),
+           ("qwen1.5-32b", (True,), True),
+           ("command-r-plus-104b", (False,), True),
+           ("deepseek-v2-236b", (False,), True))
+NEW_DRAINS = (("granite-moe-1b-a400m", None, (True,), TOK_REQUESTS),
+              ("starcoder2-7b", None, (True, False), TOK_REQUESTS),
+              ("qwen1.5-32b", 8, (True,), 8),
+              ("command-r-plus-104b", 4, (False,), 8),
+              ("deepseek-v2-236b", 3, (False,), 8))
 
 
 def fail(msg: str) -> None:
@@ -1495,25 +1563,29 @@ def _leaves(tree):
 
 
 def token_card_vs_cpu(torch, dev, arch="starcoder2-3b", layers=2,
-                      layouts=(True, False)):
-    """Phases 8 and 12: full width, ``layers`` layers, fp32; card (kernels)
-    vs CPU (plain versions), same weights drawn on the host, each KV
-    layout in ``layouts``.  Returns (cfg, card params, CPU params)."""
+                      layouts=(True, False), reduced=False):
+    """Phases 8, 12 and 16 (a): full width (the config's ``reduced()``
+    widths if ``reduced``), ``layers`` layers, fp32; card (kernels) vs CPU
+    (plain versions), same weights drawn on the host, each KV layout in
+    ``layouts``.  Returns (cfg, card params, CPU params)."""
     import dataclasses
     from repro_torch.config import get_arch
     from repro_torch.models import transformer as TT
     from repro_torch.models.attention import RunOpts
     from repro_torch.models.param import tree_to
     from repro_torch.serving import Request
-    cfg = dataclasses.replace(get_arch(arch), num_layers=layers,
+    base = get_arch(arch).reduced() if reduced else get_arch(arch)
+    cfg = dataclasses.replace(base, num_layers=layers,
                               param_dtype="float32", compute_dtype="float32")
     t0 = time.perf_counter()
     cpu_params = TT.init_params(cfg, torch.Generator().manual_seed(7),
                                 device="cpu")
     card_params = tree_to(cpu_params, dev)
-    print(f"{arch} at {layers} layers {cfg.layer_kinds()}, fp32: weights "
-          f"drawn on the host in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"{arch} at {layers} layers {cfg.layer_kinds()}, "
+          f"{'reduced' if reduced else 'full'} width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim}), fp32: weights drawn on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     reqs = token_requests(Request, cfg.vocab_size, CPU_REQUESTS, CPU_NEW,
                           CPU_PROMPT, 7)
     opts = RunOpts(use_kernels=True)
@@ -1955,6 +2027,244 @@ def fused_fleet(torch, dev, card, root, serial_launches, failover_digest):
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the EDA runtime
+# ---------------------------------------------------------------------------
+
+
+def load_example(root, name):
+    """A module of ``examples/`` (not a package) by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def eda_runtime(torch, dev, card, root):
+    """Phase 15 (see the module docstring)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import EDARuntime, PAPER_DEVICES, device_prefetch
+    from repro_torch.config import EDAConfig
+    from repro_torch.core.runtime import ledger_digest
+    from repro_torch.data import DashCamSource
+    from repro_torch.models.param import tree_to
+
+    # (a) the case study through SimExecutor: the pinned ledger digest
+    dyn = lambda name: dataclasses.replace(PAPER_DEVICES[name],
+                                           dynamic_esd=True)
+    rt = EDARuntime(eda=EDAConfig(granularity_s=2.0, segmentation=True,
+                                  dynamic_esd=True),
+                    master=dyn("findx2pro"),
+                    workers=[dyn("pixel6"), dyn("oneplus8")])
+    digest = ledger_digest(rt.run(50))
+    if digest != CASE_STUDY_DIGEST:
+        fail(f"case-study ledger digest {digest} != {CASE_STUDY_DIGEST}")
+    print(f"eda (a): SimExecutor case study (3 phones, 2 s, 50 pairs): "
+          f"ledger digest {digest[:16]}... as pinned; {len(rt.results)} "
+          f"videos merged", flush=True)
+
+    # (b) the real executor on the card: full-depth models at 192 px,
+    # 256 px frames at 30 fps, the paper's three phones, segmentation and
+    # dynamic ESD; weights drawn on the host, so the CPU can check flags
+    ex = load_example(root, "torch_eda_dashcam_serve")
+    src = DashCamSource(granularity_s=1.0, fps=EDA_FPS, res=FRAME_RES,
+                        seed=7)
+    cpu = ex.RealExecutor(src, res=INPUT_RES, device="cpu")
+    execu = ex.RealExecutor(src, res=INPUT_RES, device=dev,
+                            params=(tree_to(cpu.dp, dev),
+                                    tree_to(cpu.pp, dev)))
+    warm = src.pair(EDA_PAIRS)                    # cuDNN's algorithm choice
+    execu.flags("outer", warm.outer)
+    execu.flags("inner", warm.inner)
+    torch.cuda.synchronize()
+    rt = ex.paper_runtime(execu, EDA_FPS)
+    t0 = time.perf_counter()
+    ledger = rt.run(EDA_PAIRS)
+    wall = time.perf_counter() - t0
+    ledger.check()
+    if len(rt.results) != 2 * EDA_PAIRS or rt._pending:
+        fail(f"eda (b): {len(rt.results)} videos merged of {2 * EDA_PAIRS}")
+    print(f"eda (b): {EDA_PAIRS} pairs of {FRAME_RES} px frames at "
+          f"{EDA_FPS} fps through the real executor on {card} in "
+          f"{wall:.2f} s wall:\n{ledger.table()}", flush=True)
+    for name, recs in sorted(ledger.by_device().items()):
+        mean = lambda f: statistics.fmean(getattr(r, f) for r in recs)
+        print(f"eda (b) turnaround decomposition {name}: "
+              f"{len(recs)} segments, mean ms: download "
+              f"{mean('download_ms'):.3f} transfer {mean('transfer_ms'):.3f} "
+              f"wait {mean('wait_ms'):.3f} processing "
+              f"{mean('processing_ms'):.3f} return {mean('return_ms'):.3f} "
+              f"overhead {mean('overhead_ms'):.3f} = turnaround "
+              f"{mean('turnaround_ms'):.3f} (video {mean('video_len_ms'):.0f})"
+              f"; frames {sum(r.frames_processed for r in recs)} of "
+              f"{sum(r.frames_total for r in recs)}", flush=True)
+    print(f"eda (b): near-real-time fraction "
+          f"{ledger.real_time_fraction():.4f}, ESD {rt.esd_values()}",
+          flush=True)
+    checked = 0
+    for vid, frames in sorted(rt.results.items()):
+        idx = int(vid.split("_")[0][1:])
+        if idx >= EDA_CHECKED:
+            continue
+        stream = "outer" if "_out" in vid else "inner"
+        want = cpu.flags(stream, getattr(src.pair(idx), stream))
+        got = {i: r["danger"] for i, r in frames.items()}
+        if got != {i: bool(want[i]) for i in frames}:
+            fail(f"eda (b): {vid}'s flags differ card vs CPU")
+        checked += len(frames)
+    print(f"eda (b): flags of the first {EDA_CHECKED} pairs ({checked} "
+          f"frames, {sum(r['danger'] for v in rt.results.values() for r in v.values())} "
+          f"flagged in all) equal the CPU's (TF32 off)", flush=True)
+
+    # (c) device_prefetch of frame pairs: equal to the host batches
+    batches = [(src.pair(i).outer, src.pair(i).inner)
+               for i in range(PREFETCH_BATCHES)]
+    nbytes = sum(a.nbytes + b.nbytes for a, b in batches)
+    list(device_prefetch(iter(batches[:2])))     # pinned pool, stream warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(device_prefetch(iter(batches)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for (o, i), (go, gi) in zip(batches, out):
+        if not (np.array_equal(go.cpu().numpy(), o)
+                and np.array_equal(gi.cpu().numpy(), i)):
+            fail("eda (c): a prefetched batch differs from its host batch")
+    if len(out) != PREFETCH_BATCHES:
+        fail(f"eda (c): {len(out)} batches of {PREFETCH_BATCHES}")
+    print(f"eda (c): device_prefetch of {PREFETCH_BATCHES} frame pairs "
+          f"({nbytes / 1e6:.1f} MB, pinning included) in {dt * 1e3:.1f} ms: "
+          f"{nbytes / dt / 1e9:.2f} GB/s on {card}; every batch equals its "
+          f"host batch", flush=True)
+    del out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the new architectures
+# ---------------------------------------------------------------------------
+
+
+def new_shape_kernels(torch, dev, rows):
+    """Phase 16 (c): kernels 5-8 at the new configs' heads against their
+    plain versions (fp32 TIGHT with a 1031-key row, bf16 LOOSE at the
+    token path's shapes: 8 decode rows, one 128-token chunk) and timed in
+    bf16 beside SDPA and the bound; the errors fold into the rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention_common import paged_gather_plain
+    gen = torch.Generator().manual_seed(3)
+    rng = torch.Generator().manual_seed(2)
+    lens = torch.randint(TOK_PROMPT[0], TOK_PROMPT[1] + 1, (TOK_SLOTS,),
+                         generator=rng).tolist()
+    longest = TOK_PROMPT[1] + TOK_NEW - 1
+    for label, (Hq, Hkv, D, window, names) in NEW_HEADS.items():
+        # the engine's table columns: a window's block ring, else the
+        # capacity's blocks
+        M = (-(-(window - 1) // TOK_BLOCK) + 1 if window
+             else -(-TOK_CAPACITY // TOK_BLOCK))
+        for S, ls in {1: lens[:-1] + [longest], TOK_CHUNK: [longest]}.items():
+            for dtype, tol in ((torch.float32, TIGHT),
+                               (torch.bfloat16, LOOSE)):
+                c = attn_case(torch, gen, dev, ls, S, Hq, Hkv, D, TOK_BLOCK,
+                              M, dtype, C=TOK_CAPACITY)
+                calls = attn_calls(c, window)
+                for name in names:
+                    if name not in calls:
+                        continue
+                    kern, plain = calls[name]
+                    err = max_err(kern(), plain(), tol=tol)
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"], err)
+                    if dtype != torch.bfloat16:
+                        continue
+                    paged = name.startswith("paged")
+                    if paged:
+                        kk, vv, kv_pos = paged_gather_plain(
+                            c["kp"], c["vp"], c["ppos"], c["tbl"])
+                    else:
+                        kk, vv, kv_pos = c["k"], c["v"], c["kv_pos"]
+                    nbytes, flops, valid = attn_work(
+                        torch, c["q"], c["q_pos"], kv_pos, Hkv, window,
+                        table_bytes=c["tbl"].numel() * 4 if paged else 0)
+                    qT = c["q"].transpose(1, 2).contiguous()
+                    kT = kk.transpose(1, 2).contiguous()
+                    vT = vv.transpose(1, 2).contiguous()
+                    lib = (lambda qT=qT, kT=kT, vT=vT, mask=valid[:, None]:
+                           F.scaled_dot_product_attention(
+                               qT, kT, vT, attn_mask=mask, enable_gqa=True))
+                    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+                    k_ms, p_ms, l_ms = (time_ms(kern), time_ms(plain),
+                                        time_ms(lib))
+                    print(f"kernel {name} at {label} (Hq {Hq}, Hkv {Hkv}, "
+                          f"D {D}, window {window}): B={c['q'].shape[0]} "
+                          f"S={S} bf16 cold L2: kernel {k_ms:.4f} ms  plain "
+                          f"{p_ms:.4f} ms  library (sdpa) {l_ms:.4f} ms  "
+                          f"bound {b_ms * 1e3:.2f} us ({b_by}, "
+                          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+                          f"max abs err {err:.3g}", flush=True)
+    print(f"attention at the new heads: max_abs_err now "
+          f"{ {n: rows[n]['max_abs_err'] for n in ATTN_REPLACES} }",
+          flush=True)
+
+
+def new_arch_drain(torch, dev, card, arch, layers, layouts, requests):
+    """Phase 16 (b): ``arch`` at full width (``layers`` layers, None:
+    full depth), bf16, weights drawn on the card, ``requests`` of phase
+    7's traffic through each layout; each drain's kernel counts zeroed
+    just before it and read just after.  Returns {layout: launches}."""
+    import dataclasses
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as TT
+    from repro_torch.obs.tracing import SpanTracer
+    from repro_torch.serving import Request
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    TT.check_supported(cfg)
+    params = draw_on_card(torch, cfg, dev)
+    reqs = token_requests(Request, cfg.vocab_size, requests, TOK_NEW,
+                          TOK_PROMPT, TOK_SEED)
+    warm = token_requests(Request, cfg.vocab_size, 2, 2, (33, 140), 99)
+    out = {}
+    for paged in layouts:
+        layout = "paged" if paged else "contiguous"
+        serve(torch, cfg, params, warm, paged=paged, dev=dev,
+              slots=TOK_SLOTS)
+        torch.cuda.empty_cache()
+        tracer = SpanTracer()
+        kops.reset_launches()
+        eng, done, dt, finite = serve(torch, cfg, params, reqs, paged=paged,
+                                      dev=dev, slots=TOK_SLOTS,
+                                      tracer=tracer)
+        launches = kops.launches()
+        out[layout] = launches
+        check_drain(f"{arch} {layout}", eng, done, requests, TOK_NEW, finite)
+        if eng.paged != paged:
+            fail(f"{arch}: asked for {layout}, the engine chose otherwise")
+        if cfg.attention == "mla":
+            want = set()
+        else:
+            want = ({"paged_decode", "paged_flash"} if paged
+                    else {"decode", "flash"})
+        got = {n for n, k in launches.items() if k}
+        if got != want:
+            fail(f"{arch} {layout} launched {sorted(got)}, expected "
+                 f"{sorted(want)}")
+        report_drain(f"{arch} {layout} ({cfg.num_layers} layers)", eng,
+                     done, dt, tracer, card, launches)
+        if not want:
+            print(f"{arch} {layout}: MLA attention and MoE run as torch "
+                  f"ops; no port kernel launched", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2164,6 +2474,32 @@ def main() -> int:
     fused_fleet(torch, dev, card, os.path.dirname(src), serial_launches,
                 failover)
     phase_done(14, "fused fleet tick")
+
+    # ---- phase 15: the EDA runtime -----------------------------------------
+    eda_runtime(torch, dev, card, os.path.dirname(src))
+    phase_done(15, "EDA runtime")
+
+    # ---- phase 16: the new architectures -----------------------------------
+    for arch, layouts, reduced in NEW_CPU:
+        token_card_vs_cpu(torch, dev, arch, 2, layouts, reduced=reduced)
+    phase_done("16 (a)", "new archs card vs CPU")
+    new_launches = {name: 0 for name in ATTN_REPLACES}
+    for arch, layers, layouts, requests in NEW_DRAINS:
+        for layout, got in new_arch_drain(torch, dev, card, arch, layers,
+                                          layouts, requests).items():
+            print(f"{arch} {layout} drain launches: "
+                  + ", ".join(f"{n} {got[n]}" for n in ATTN_REPLACES),
+                  flush=True)
+            for name in ATTN_REPLACES:
+                new_launches[name] += got[name]
+    for name in ATTN_REPLACES:
+        rows[name]["launches"] += new_launches[name]
+    print(f"attention launches on the new archs' drains {new_launches}; "
+          f"with phase 7's: "
+          f"{ {n: rows[n]['launches'] for n in ATTN_REPLACES} }", flush=True)
+    phase_done("16 (b)", "new archs drains")
+    new_shape_kernels(torch, dev, rows)
+    phase_done("16 (c)", "attention kernels at the new heads")
     print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)

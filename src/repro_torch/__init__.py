@@ -31,7 +31,16 @@ simulator that drives both on virtual clocks:
                                 invariants (the reference's digests)
   serving                       ServeEngine (the token workload shell)
   launch.serve                  the serving CLI
-  data.synthetic                deterministic dash-cam clips
+  core.runtime / core.pipeline  the paper's EDA master runtime
+                                (EDARuntime, SimExecutor, PAPER_DEVICES)
+                                and the double-buffered ingest
+  data                          deterministic dash-cam clips,
+                                device_prefetch
   convert                       reference parameter trees and caches ->
                                 port tensors
 """
+from repro_torch.core.pipeline import DoubleBuffer, overlapped  # noqa: F401,E402
+from repro_torch.core.runtime import (PAPER_DEVICES,  # noqa: F401,E402
+                                      DeviceProfile, EDARuntime,
+                                      SimExecutor)
+from repro_torch.data.prefetch import device_prefetch  # noqa: F401,E402

@@ -1,12 +1,19 @@
 """Per-architecture configs the port serves.
 
 Importing this package registers each ported arch with
-``repro_torch.config``: the pure-attention ``starcoder2-3b``, the hybrid
+``repro_torch.config``: the dense attention stacks ``starcoder2-3b``,
+``starcoder2-7b``, ``qwen1.5-32b`` and ``command-r-plus-104b``, the MoE
+``granite-moe-1b-a400m``, the MLA + MoE ``deepseek-v2-236b``, the hybrid
 RG-LRU + local-attention ``recurrentgemma-9b`` and the mLSTM + sLSTM
-``xlstm-350m``.  The other architectures of the reference's registry (MoE,
-MLA, encoder-decoder, VLM) come with the model families that run them
-(``ROADMAP.md`` queue 1, item 11).
+``xlstm-350m``.  The reference registry's encoder-decoder
+(``whisper-base``) and VLM (``internvl2-2b``) archs come with the model
+families that run them (``ROADMAP.md`` queue 1, item 6, 6.4-6.5).
 """
+from repro_torch.configs import command_r_plus_104b  # noqa: F401
+from repro_torch.configs import deepseek_v2_236b  # noqa: F401
+from repro_torch.configs import granite_moe_1b_a400m  # noqa: F401
+from repro_torch.configs import qwen1_5_32b  # noqa: F401
 from repro_torch.configs import recurrentgemma_9b  # noqa: F401
 from repro_torch.configs import starcoder2_3b  # noqa: F401
+from repro_torch.configs import starcoder2_7b  # noqa: F401
 from repro_torch.configs import xlstm_350m  # noqa: F401

@@ -14,9 +14,16 @@ The port keeps one parameter dict per layer and one cache dict per layer,
 so :func:`transformer_from_jax` and :func:`caches_from_jax` unstack.  A
 hybrid pattern is a multi-position period (recurrentgemma-9b: (RG-LRU,
 RG-LRU, attention) x 12 + RG-LRU x 2; xlstm-350m: (7 x mLSTM, sLSTM) x 3):
-position j of repeat r is layer ``r * len(period) + j``.  Recurrent state
-leaves (``h``, ``conv``, ``C``, ``n``, ``m``, ``c``) are carried across as
-they are.  Weights keep their ``(d_in, d_out)`` layout: no transpose.
+position j of repeat r is layer ``r * len(period) + j``.  A segment's
+signature also carries the layer's MoE flag, so an MoE stack with dense
+first layers splits into segments (deepseek-v2-236b: one dense layer, then
+the MoE layers stacked); an MoE layer's experts are already stacked
+``(E, d, ff)`` in the reference and stay so, the repeat axis in front of
+them is the one unstacked.  MLA trees (``wq_a``/``q_norm``/``wq_b`` or
+``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``) and latent caches
+(``c``, ``k_rope``, ``pos``), recurrent state leaves (``h``, ``conv``,
+``C``, ``n``, ``m``, ``c``) are carried across as they are.  Weights keep
+their ``(d_in, d_out)`` layout: no transpose.
 """
 from __future__ import annotations
 

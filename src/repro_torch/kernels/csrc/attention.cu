@@ -758,12 +758,8 @@ int launch_r(const void* q, const int* q_pos, void* out, float* ws, int* cnt,
   const long long shmem = smem_bytes<T, kD, kBR>(split_keys, splits);
   if (shmem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_kernel<T, Src, kD, kBR>;
-  if (shmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = fit_dynamic_smem(kernel, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(splits, Hkv * row_tiles, B);
   kernel<<<grid, kBR * 2, static_cast<size_t>(shmem),
            static_cast<cudaStream_t>(stream)>>>(

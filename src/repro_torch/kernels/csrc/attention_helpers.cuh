@@ -111,4 +111,20 @@ __device__ __forceinline__ void fma4(float4& a, float4 v, float x) {
   a.w = fmaf(v.w, x, a.w);
 }
 
+// Let `kernel` take `dynamic` bytes of dynamic shared memory.  A launch
+// gets 48 KB a block without asking, counted over the dynamic bytes AND
+// the kernel's static __shared__ arrays: past that total it fails with
+// cudaErrorInvalidValue unless the kernel has opted in to more.
+template <typename K>
+inline cudaError_t fit_dynamic_smem(K kernel, long long dynamic) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  if (dynamic + static_cast<long long>(attr.sharedSizeBytes) <= 48 * 1024)
+    return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(dynamic));
+}
+
 }  // namespace

@@ -632,12 +632,8 @@ int launch_d(const void* q, const int* q_pos, void* out, float* ws, int* cnt,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t shmem = smem_bytes<T, kD>(split_keys);
   auto kernel = decode_kernel<T, Src, kD>;
-  if (shmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = fit_dynamic_smem(kernel, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(splits, Hkv * row_tiles, B);
   kernel<<<grid, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), q_pos, static_cast<T*>(out), ws, cnt, src, Hq,

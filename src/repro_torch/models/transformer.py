@@ -1,10 +1,14 @@
-"""Model assembly: params, caches, forward, for attention, RG-LRU and
-xLSTM stacks.
+"""Model assembly: params, caches, forward, for attention (GQA or MLA,
+dense or MoE MLP), RG-LRU and xLSTM stacks.
 
 Counterpart of the reference's ``models/transformer.py``, for dense
-attention stacks (GQA, full or sliding window, ``starcoder2-3b``), the
-hybrid RG-LRU + local-attention stack (``recurrentgemma-9b``) and the
-mLSTM + sLSTM stack (``xlstm-350m``).  The reference groups layers into
+attention stacks (GQA, full or sliding window, biases, the parallel block:
+``starcoder2-3b``/``-7b``, ``qwen1.5-32b``, ``command-r-plus-104b``), MoE
+stacks (``granite-moe-1b-a400m``; layers from ``moe.first_dense_layers``
+on route their MLP through ``models/moe.py``), multi-head latent attention
+(``deepseek-v2-236b``: ``models/mla.py``, MLA + MoE with one dense first
+layer), the hybrid RG-LRU + local-attention stack (``recurrentgemma-9b``)
+and the mLSTM + sLSTM stack (``xlstm-350m``).  The reference groups layers into
 scanned segments of stacked parameters (``plan_layers``; hybrid patterns
 become multi-position periods); the port runs its layers as a Python loop
 over per-layer parameter dicts (``params["layers"]``) and per-layer cache
@@ -12,14 +16,17 @@ dicts (a list), with nothing stacked.  ``convert.transformer_from_jax``
 unstacks a reference tree into this layout.
 
 Caches: an attention layer holds a contiguous ring or a paged pool
-(``models/attention.py``); a recurrent layer holds its state, ``{"h",
+(``models/attention.py``), an MLA layer its latent ring ``{"c", "k_rope",
+"pos"}`` (contiguous only, as in the reference); a recurrent layer holds its state, ``{"h",
 "conv"}`` (RG-LRU), ``{"C", "n", "m"}`` (mLSTM) or ``{"c", "n", "h",
 "m"}`` (sLSTM).  :func:`init_caches` fills them with the reference's
 sentinels by leaf name (:func:`materialize_caches`): int leaves -1, every
 ``m`` -1e30, a 2-D ``n`` 1.
 
-MoE, MLA, encoder-decoder and VLM families raise ``NotImplementedError``:
-they come with ``ROADMAP.md`` queue 1, item 11.
+``forward`` returns the reference's MoE aux loss (the sum over MoE
+layers; serving ignores it).  The encoder-decoder and VLM families raise
+``NotImplementedError``: they come with ``ROADMAP.md`` queue 1, item 6
+(6.4-6.5).
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ import torch
 from repro_torch.config import ATTN, MLSTM, RGLRU, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
@@ -80,14 +89,14 @@ def plan_layers(cfg: ModelConfig):
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     kinds = set(cfg.layer_kinds())
-    if (not kinds <= {ATTN, RGLRU, MLSTM, SLSTM} or cfg.moe.enabled
-            or cfg.attention == "mla" or cfg.family in ("encdec", "vlm")):
+    if (not kinds <= {ATTN, RGLRU, MLSTM, SLSTM}
+            or cfg.family in ("encdec", "vlm")):
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, layers "
-            f"{sorted(kinds)}, attention {cfg.attention!r}, MoE "
-            f"{cfg.moe.enabled}) is not ported yet: dense attention, RG-LRU "
-            f"and xLSTM stacks run; the others come with ROADMAP.md queue "
-            f"1, item 11")
+            f"{sorted(kinds)}) is not ported yet: dense, MoE and MLA "
+            f"attention, RG-LRU and xLSTM stacks run; the encoder-decoder "
+            f"and VLM families come with ROADMAP.md queue 1, item 6 "
+            f"(6.4-6.5)")
 
 
 # ---------------------------------------------------------------------------
@@ -95,14 +104,18 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_params(cfg: ModelConfig, kind: str) -> dict:
+def _block_params(cfg: ModelConfig, kind: str, moe_flag: bool) -> dict:
     p = {"ln1": norm_params(cfg)}
     if kind == ATTN:
-        p["attn"] = attn_mod.attn_params(cfg)
-        if cfg.d_ff > 0:
+        p["attn"] = (mla_mod.mla_params(cfg) if cfg.attention == "mla"
+                     else attn_mod.attn_params(cfg))
+        if cfg.d_ff > 0 or moe_flag:
             if not cfg.parallel_block:
                 p["ln2"] = norm_params(cfg)
-            p["mlp"] = mlp_params(cfg)
+            if moe_flag:
+                p["moe"] = moe_mod.moe_params(cfg)
+            else:
+                p["mlp"] = mlp_params(cfg)
     elif kind == RGLRU:
         p["mix"] = rglru_mod.rglru_params(cfg)
         if cfg.d_ff:
@@ -122,8 +135,8 @@ def model_param_tree(cfg: ModelConfig) -> dict:
     """Descriptor tree: ``{"embed", "final_norm", "layers": [per layer]}``."""
     check_supported(cfg)
     return {"embed": embed_params(cfg), "final_norm": norm_params(cfg),
-            "layers": [_block_params(cfg, kind)
-                       for kind in cfg.layer_kinds()]}
+            "layers": [_block_params(cfg, kind, moe_flag)
+                       for kind, moe_flag in _layer_sigs(cfg)]}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -142,6 +155,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 def _block_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
                         capacity: int) -> dict:
     if kind == ATTN:
+        if cfg.attention == "mla":
+            return mla_mod.mla_cache_shapes(cfg, batch, capacity)
         return attn_mod.cache_shapes(cfg, batch, capacity)
     if kind == RGLRU:
         return rglru_mod.cache_shapes(cfg, batch)
@@ -173,8 +188,9 @@ def materialize_caches(shapes: dict, device) -> dict:
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 device=None) -> List[dict]:
-    """Empty contiguous caches, one dict per layer: attention rings and
-    recurrent states, on the card unless ``device="cpu"``."""
+    """Empty contiguous caches, one dict per layer: attention rings (MLA:
+    latent rings) and recurrent states, on the card unless
+    ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [materialize_caches(
@@ -210,24 +226,37 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
-                 positions, cache, cache_index, fill_cache, cache_capacity,
-                 pages, opts: RunOpts):
-    """One block.  Returns (x, new_cache)."""
+def _apply_block(cfg: ModelConfig, kind: str, moe_flag: bool, p: dict,
+                 x: torch.Tensor, *, positions, cache, cache_index,
+                 fill_cache, cache_capacity, pages, opts: RunOpts):
+    """One block.  Returns (x, new_cache, aux): aux is the MoE layer's
+    load-balance loss, None for any other block."""
     xn = apply_norm(cfg, p["ln1"], x)
     if kind == ATTN:
-        a_out, ncache = attn_mod.attn_apply(
-            cfg, p["attn"], xn, positions=positions, cache=cache,
-            cache_index=cache_index, causal=True, fill_cache=fill_cache,
-            cache_capacity=cache_capacity, pages=pages, opts=opts)
-        has_mlp = cfg.d_ff > 0
+        if cfg.attention == "mla":
+            a_out, ncache = mla_mod.mla_apply(
+                cfg, p["attn"], xn, positions=positions, cache=cache,
+                cache_index=cache_index, fill_cache=fill_cache,
+                cache_capacity=cache_capacity, opts=opts)
+        else:
+            a_out, ncache = attn_mod.attn_apply(
+                cfg, p["attn"], xn, positions=positions, cache=cache,
+                cache_index=cache_index, causal=True, fill_cache=fill_cache,
+                cache_capacity=cache_capacity, pages=pages, opts=opts)
+        aux = None
+        has_mlp = cfg.d_ff > 0 or moe_flag
         if cfg.parallel_block and has_mlp:
             x = x + a_out + apply_mlp(cfg, p["mlp"], xn)
         else:
             x = x + a_out
             if has_mlp:
-                x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-        return x, ncache
+                xn2 = apply_norm(cfg, p["ln2"], x)
+                if moe_flag:
+                    m_out, aux = moe_mod.moe_apply(cfg, p["moe"], xn2)
+                else:
+                    m_out = apply_mlp(cfg, p["mlp"], xn2)
+                x = x + m_out
+        return x, ncache, aux
     if kind == RGLRU:
         mix, ncache = rglru_mod.rglru_block_apply(
             cfg, p["mix"], xn, cache=cache, fill_cache=fill_cache,
@@ -235,19 +264,19 @@ def _apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
         x = x + mix
         if cfg.d_ff:
             x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-        return x, ncache
+        return x, ncache, None
     if kind == MLSTM:
         mix, ncache = ssm_mod.mlstm_block_apply(
             cfg, p["mix"], xn, cache=cache, fill_cache=fill_cache,
             use_kernel=opts.use_kernels)
-        return x + mix, ncache
+        return x + mix, ncache, None
     if kind == SLSTM:
         mix, ncache = ssm_mod.slstm_mixer_apply(cfg, p["mix"], xn,
                                                 cache=cache,
                                                 fill_cache=fill_cache)
         x = x + mix
         x = x + ssm_mod.slstm_ffn_apply(p["mix"], apply_norm(cfg, p["ln2"], x))
-        return x, ncache
+        return x, ncache, None
     raise ValueError(kind)
 
 
@@ -265,7 +294,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``caches`` is a list of per-layer dicts (contiguous rings, or paged
     pools with ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}``); they
     are updated in place and returned.  ``aux`` is the reference's MoE
-    auxiliary loss, always 0 here."""
+    auxiliary loss: the sum of every MoE layer's, an fp32 0 without
+    one."""
     check_supported(cfg)
     B, S = tokens.shape
     if positions is None:
@@ -281,19 +311,23 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     x = embed_tokens(cfg, params["embed"], tokens)
     want_cache = caches is not None or fill_cache
     new_caches: Optional[list] = [] if want_cache else None
-    for i, (kind, p) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        x, nc = _apply_block(
-            cfg, kind, p, x, positions=positions,
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, ((kind, moe_flag), p) in enumerate(zip(_layer_sigs(cfg),
+                                                   params["layers"])):
+        x, nc, a = _apply_block(
+            cfg, kind, moe_flag, p, x, positions=positions,
             cache=caches[i] if caches is not None else None,
             cache_index=cache_index, fill_cache=fill_cache,
             cache_capacity=cache_capacity, pages=pages, opts=opts)
+        if a is not None:
+            aux = aux + a
         if want_cache:
             new_caches.append(nc)
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
     logits = unembed(cfg, params["embed"], x)
-    return logits, new_caches, torch.zeros((), device=x.device)
+    return logits, new_caches, aux
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

@@ -1027,3 +1027,181 @@ def test_golden_churn_fused_equals_serial_on_card(dev):
     assert serial.digest == fused.digest == golden["digest"]
     assert serial.summary == fused.summary
     assert runner.gw._fleet.dispatches == work[0] > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE and MLA families' heads, layers, and the EDA runtime's pieces
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,window,lens", [
+    ((16, 8, 64), 0, [1031, 130, 40]),             # granite: G 2, D 64
+    ((36, 4, 128), 4096, [4100, 130, 40]),         # starcoder2-7b: G 9
+    ((40, 40, 128), 0, [1031, 130, 40]),           # qwen1.5-32b: G 1
+    ((96, 8, 128), 0, [1031, 130, 40])],           # command-r: G 12
+    ids=["granite-g2-d64", "starcoder2_7b-g9-w4096", "qwen-g1",
+         "command_r-g12"])
+def test_attention_kernels_at_new_family_heads(dev, heads, window, lens):
+    """All four attention kernels at the new configs' heads against their
+    plain versions, fp32 at TIGHT and bf16 at LOOSE: decode (one split per
+    128 keys, a row of more than 4096 keys under starcoder2-7b's window)
+    and a 16-row flash chunk; then the served shapes, one 128-token chunk
+    and 8 decode rows over the engine's 128 table columns of 16 (the
+    2048-entry capacity: at D 64 in bf16 the flash block's 48144 dynamic
+    bytes and its static arrays pass 48 KB only together); one launch a
+    call, repeats bitwise equal, ticket counters back at 0."""
+    Hq, Hkv, D = heads
+    M = -(-max(lens) // 16)
+    for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+        _check_decode(_attn_case(11, lens, 1, Hq, Hkv, D, 16, M, dtype),
+                      window, dev, tol)
+        _check_flash(_attn_case(12, lens, 16, Hq, Hkv, D, 16, M, dtype),
+                     window, dev, tol)
+        _check_flash(_attn_case(13, [140], 128, Hq, Hkv, D, 16, 128, dtype,
+                                C=2048), window, dev, tol)
+        _check_decode(_attn_case(14, [140, 33, 1031, 517, 70, 260, 1000,
+                                      90], 1, Hq, Hkv, D, 16, 128, dtype,
+                                 C=2048), window, dev, tol)
+
+
+# card vs CPU of the plain torch layers in fp32 with TF32 off: the two
+# reduce d_model-long sums in other orders (about 1e-6 relative)
+CARD_CPU = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_moe_apply_on_card_matches_cpu(dev, no_tf32):
+    """granite-moe-1b-a400m's MoE layer at full width (32 experts, top 8,
+    fp32) on 2 x 64 tokens and on 8 decode rows (the capacity floor):
+    the card's routing equals the CPU's (the top-K gap is printed if not)
+    and y, aux agree within CARD_CPU; two card calls are bitwise equal."""
+    import dataclasses
+
+    from repro_torch.models import moe as TM
+    from repro_torch.models.param import init_tree
+    cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m"),
+                              param_dtype="float32", compute_dtype="float32")
+    p = init_tree(TM.moe_params(cfg), torch.Generator().manual_seed(0))
+    pc = tree_to(p, dev)
+    for shape in ((2, 64), (8, 1)):
+        x = torch.as_tensor(np.random.default_rng(sum(shape)).normal(
+            size=shape + (cfg.d_model,)).astype(np.float32))
+        logits = x.reshape(-1, cfg.d_model) @ p["router"]
+        probs = torch.softmax(logits, dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        gap = float((top[:, cfg.moe.top_k - 1] - top[:, cfg.moe.top_k]).min())
+        cprobs = torch.softmax(x.to(dev).reshape(-1, cfg.d_model)
+                               @ pc["router"], dim=-1).cpu()
+        assert torch.equal(TM._top_k(probs, cfg.moe.top_k)[1],
+                           TM._top_k(cprobs, cfg.moe.top_k)[1]), (
+            f"routes differ; smallest CPU top-{cfg.moe.top_k} gap {gap:.3g}")
+        y, aux = TM.moe_apply(cfg, p, x)
+        yc, auxc = TM.moe_apply(cfg, pc, x.to(dev))
+        yc2, _ = TM.moe_apply(cfg, pc, x.to(dev))
+        assert torch.equal(yc, yc2)
+        torch.testing.assert_close(yc.cpu(), y, **CARD_CPU)
+        torch.testing.assert_close(auxc.cpu(), aux, **CARD_CPU)
+
+
+@pytest.mark.cuda
+def test_mla_apply_on_card_matches_cpu(dev, no_tf32):
+    """deepseek-v2-236b's MLA at full width (128 heads, kv_lora 512,
+    q_lora 1536, fp32): the expanded prefill with ``fill_cache``, a
+    contiguous 4-token chunk and a per-row decode step, card vs CPU within
+    CARD_CPU, cache positions equal."""
+    import dataclasses
+
+    from repro_torch.models import mla as TMLA
+    from repro_torch.models.param import init_tree
+    cfg = dataclasses.replace(get_arch("deepseek-v2-236b"),
+                              param_dtype="float32", compute_dtype="float32")
+    p = init_tree(TMLA.mla_params(cfg), torch.Generator().manual_seed(1))
+    pc = tree_to(p, dev)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.normal(size=(2, 24, cfg.d_model)).astype(
+        np.float32))
+    pos = torch.arange(24, dtype=torch.int32).repeat(2, 1)
+    y, cache = TMLA.mla_apply(cfg, p, x, positions=pos, fill_cache=True,
+                              cache_capacity=40)
+    yc, cachec = TMLA.mla_apply(cfg, pc, x.to(dev), positions=pos.to(dev),
+                                fill_cache=True, cache_capacity=40)
+    torch.testing.assert_close(yc.cpu(), y, **CARD_CPU)
+    for name in ("c", "k_rope"):
+        torch.testing.assert_close(cachec[name].cpu(), cache[name],
+                                   **CARD_CPU)
+    assert torch.equal(cachec["pos"].cpu(), cache["pos"])
+    x = torch.as_tensor(rng.normal(size=(2, 4, cfg.d_model)).astype(
+        np.float32))
+    pos = torch.arange(24, 28, dtype=torch.int32).repeat(2, 1)
+    y, cache = TMLA.mla_apply(cfg, p, x, positions=pos, cache=cache,
+                              cache_index=24)
+    yc, cachec = TMLA.mla_apply(cfg, pc, x.to(dev), positions=pos.to(dev),
+                                cache=cachec, cache_index=24)
+    torch.testing.assert_close(yc.cpu(), y, **CARD_CPU)
+    x = torch.as_tensor(rng.normal(size=(2, 1, cfg.d_model)).astype(
+        np.float32))
+    idx = torch.tensor([28, 30], dtype=torch.int32)
+    y, cache = TMLA.mla_apply(cfg, p, x, positions=idx[:, None], cache=cache,
+                              cache_index=idx)
+    yc, cachec = TMLA.mla_apply(cfg, pc, x.to(dev),
+                                positions=idx[:, None].to(dev), cache=cachec,
+                                cache_index=idx.to(dev))
+    torch.testing.assert_close(yc.cpu(), y, **CARD_CPU)
+    assert torch.equal(cachec["pos"].cpu(), cache["pos"])
+
+
+@pytest.mark.cuda
+def test_device_prefetch_on_card_equal_and_ordered(dev):
+    """``device_prefetch`` (the card by default): every batch arrives on
+    the card, in order, equal to its host batch, usable on the consumer's
+    stream at once; nested dicts and tuples keep their structure."""
+    from repro_torch.data import device_prefetch
+    rng = np.random.default_rng(3)
+    batches = [{"frames": rng.random((2, 64, 64, 3)).astype(np.float32),
+                "ids": (np.full((2,), i, np.int32),)} for i in range(12)]
+    seen = []
+    for i, b in enumerate(device_prefetch(iter(batches), depth=3)):
+        assert b["frames"].device.type == "cuda"
+        assert isinstance(b["ids"], tuple)
+        total = b["frames"].sum()            # queued on the consumer stream
+        seen.append((int(b["ids"][0][0]), b["frames"].cpu(), float(total)))
+    assert [s[0] for s in seen] == list(range(12))
+    for (_, got, total), want in zip(seen, batches):
+        assert np.array_equal(got.numpy(), want["frames"])
+        assert total == pytest.approx(float(want["frames"].sum()), rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_real_executor_flags_card_equal_cpu(dev, no_tf32):
+    """``examples/torch_eda_dashcam_serve.py``'s executor with one set of
+    host-drawn weights: per-frame flags of 128 px clips at 96 px input on
+    the card equal the CPU's, and a 2-pair runtime run on the card merges
+    every video with flags equal to the CPU's on the same frames."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.data import DashCamSource
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "torch_eda_dashcam_serve.py")
+    spec = importlib.util.spec_from_file_location("eda_serve", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    src = DashCamSource(granularity_s=1.0, fps=12, res=128, seed=7)
+    cpu = ex.RealExecutor(src, res=96, device="cpu")
+    card = ex.RealExecutor(src, res=96, device=dev,
+                           params=(tree_to(cpu.dp, dev), tree_to(cpu.pp, dev)))
+    for i in range(2):
+        pair = src.pair(i)
+        for stream, clip in (("outer", pair.outer), ("inner", pair.inner)):
+            assert np.array_equal(card.flags(stream, clip),
+                                  cpu.flags(stream, clip))
+    rt = ex.paper_runtime(card, fps=12)
+    rt.run(2)
+    assert len(rt.results) == 4 and not rt._pending
+    for vid, frames in rt.results.items():
+        pair = src.pair(int(vid.split("_")[0][1:]))
+        stream = "outer" if "_out" in vid else "inner"
+        want = cpu.flags(stream, getattr(pair, stream))
+        assert {i: r["danger"] for i, r in frames.items()} == {
+            i: bool(want[i]) for i in frames}

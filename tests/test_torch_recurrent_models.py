@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.config import MLAConfig as JMLAConfig
 from repro.config import get_arch as jget_arch
 from repro.models import rglru as JR
 from repro.models import ssm as JS
@@ -341,7 +342,9 @@ def test_convert_unstacks_both_period_plans():
 
 def test_supported_kinds_and_layouts():
     """RG-LRU, mLSTM and sLSTM stacks are accepted and contiguous-only;
-    MoE, MLA, encoder-decoder and VLM still raise."""
+    encoder-decoder and VLM still raise.  An RG-LRU stack with MLA
+    attention is accepted, as the reference accepts it: its attention
+    layers hold latent caches of the reference's shapes."""
     for arch in (RG, XL):
         cfg = get_arch(arch).reduced()
         TT.check_supported(cfg)
@@ -350,8 +353,18 @@ def test_supported_kinds_and_layouts():
         with pytest.raises(ValueError, match="paged KV cache unsupported"):
             TT.init_paged_caches(cfg, 4, 4, device="cpu")
     base = get_arch(RG).reduced()
-    for bad in (dataclasses.replace(base, attention="mla", mla=MLAConfig()),
-                dataclasses.replace(base, family="vlm"),
+    for bad in (dataclasses.replace(base, family="vlm"),
                 dataclasses.replace(base, family="encdec")):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match=r"item 6 \(6\.4-6\.5\)"):
             TT.init_caches(bad, 1, 8, device="cpu")
+    mla = dataclasses.replace(base, attention="mla", mla=MLAConfig())
+    jmla = dataclasses.replace(jget_arch(RG).reduced(), attention="mla",
+                               mla=JMLAConfig())
+    TT.check_supported(mla)
+    got = TT.init_caches(mla, 1, 8, device="cpu")
+    want = convert.caches_from_jax(jax.tree.map(
+        np.asarray, JT.init_caches(jmla, 1, 8)), mla, device="cpu")
+    assert [{k: (tuple(v.shape), v.dtype) for k, v in c.items()}
+            for c in got] == [{k: (tuple(v.shape), v.dtype)
+                               for k, v in c.items()} for c in want]
+    assert not TT.paged_eligible(mla) and not JT.paged_eligible(jmla)

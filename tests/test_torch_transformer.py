@@ -317,19 +317,29 @@ def test_forward_matches_reference(model, mode):
 
 
 def test_unported_architectures_raise():
-    """MoE, MLA and encoder-decoder name the slice that brings them (the
-    recurrent kinds are ported: ``test_torch_recurrent_models.py``); paged
+    """Encoder-decoder and VLM name the roadmap item that brings them; MoE
+    and MLA are ported (``test_torch_moe.py``, ``test_torch_mla.py``), as
+    are the recurrent kinds (``test_torch_recurrent_models.py``); paged
     eligibility matches the reference's rule."""
     base = get_arch(ARCH).reduced()
-    for cfg in (dataclasses.replace(base, moe=MoEConfig(num_experts=4,
-                                                        top_k=2)),
-                dataclasses.replace(base, attention="mla",
-                                    mla=MLAConfig()),
-                dataclasses.replace(base, family="encdec")):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for cfg in (dataclasses.replace(base, family="encdec"),
+                dataclasses.replace(base, family="vlm")):
+        with pytest.raises(NotImplementedError, match=r"item 6 \(6\.4-6\.5\)"):
             TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match=r"item 6 \(6\.4-6\.5\)"):
             TT.init_caches(cfg, 1, 8, device="cpu")
+    for cfg in (dataclasses.replace(base, moe=MoEConfig(num_experts=4,
+                                                        top_k=2,
+                                                        expert_ff=32)),
+                dataclasses.replace(base, attention="mla",
+                                    mla=MLAConfig(kv_lora_rank=16,
+                                                  qk_nope_dim=8,
+                                                  qk_rope_dim=8,
+                                                  v_head_dim=8))):
+        TT.check_supported(cfg)
+        TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        TT.init_caches(cfg, 1, 8, device="cpu")
+        assert TT.paged_eligible(cfg) == JT.paged_eligible(cfg)
     assert TT.paged_eligible(base) and JT.paged_eligible(jget_arch(ARCH))
     assert TT.plan_layers(get_arch(ARCH)) == JT.plan_layers(jget_arch(ARCH))
     # the port's own initialiser gives the reference's tree, unstacked
