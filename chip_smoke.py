@@ -187,8 +187,35 @@ wall seconds):
                (c) kernels 5-8 at the new heads (D 64 G 2; D 128 G 9 with
                the 4096 window, G 1, G 12) against their plain versions
                (fp32 TIGHT, bf16 LOOSE) and timed beside SDPA and the
-               bound.  The ``kernels`` line's attention launches are
-               phase 7's plus these drains'.
+               bound.
+ 17. enc/VLM   the encoder-decoder (whisper-base) and the VLM
+               (internvl2-2b): (a) card vs CPU, fp32, as phase 8 (whisper
+               at full width and depth, contiguous; internvl2 at full
+               width, 2 layers, both layouts; whisper's teacher-forced
+               logits read the zero cross K/V of a fresh cache, as the
+               engine serves it), then ``prefill`` of 2 rows with frames
+               (2, 1500, 512) or a 300-token prompt over 256 patches and 8
+               teacher-forced decode steps: logits within TOKEN_TOL, argmax
+               equal; (b) full width and depth, bf16, weights drawn on the
+               card: whisper-base ``prefill`` of 8 x 16 tokens with frames
+               (8, 1500, 512), then 32 ``decode_step``s (the encoder's ms,
+               prefill ms, decode ms/step); internvl2-2b ``prefill`` of 4 x
+               320 tokens over 256 patches, then 32 steps; each with its
+               launches zeroed before and required equal to what its
+               layers call; then phase 7's traffic through ``ServeEngine``
+               (whisper contiguous, internvl2 paged and contiguous) as
+               phase 16 (b); (c) kernel 7 with ``causal=False`` at
+               whisper's encoder shape (B 8, S = C = 1500, 8 heads of 64,
+               positions 0..1499) and cross-attention shapes (S 1 and 128
+               over 1500 keys, every position 0) against its plain version
+               (fp32 TIGHT, bf16 LOOSE, repeat bitwise, one launch a call,
+               counters at 0), its rows, split and resources, a sweep of
+               rows x keys per split up to one split over the 1500 keys,
+               and its time beside SDPA and the bound; at S 1 the decode
+               kernel on the same inputs (every position 0: the same
+               function); kernels 5-8 at internvl2's heads (D 128, G 2) as
+               16 (c).  The ``kernels`` line's attention launches are
+               phase 7's plus the drains and paths of phases 16-17.
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
 global flags): the flags and the sampled tokens are threshold and argmax
@@ -321,6 +348,35 @@ NEW_DRAINS = (("granite-moe-1b-a400m", None, (True,), TOK_REQUESTS),
               ("qwen1.5-32b", 8, (True,), 8),
               ("command-r-plus-104b", 4, (False,), 8),
               ("deepseek-v2-236b", 3, (False,), 8))
+# phase 17: the encoder-decoder (whisper-base) and the VLM (internvl2-2b).
+# (a) card vs CPU, fp32: (arch, layers, layouts) served as phase 8, then
+# prefill of FAM_CPU_B rows with frames or patches (internvl2: a
+# FAM_CPU_PROMPT-token prompt over its 256 patches) and FAM_CPU_STEPS
+# teacher-forced decode steps; (b) full width and depth, bf16: whisper
+# prefill of WH_B rows of WH_PROMPT tokens with (WH_B, 1500, 512) frames,
+# then WH_STEPS decode steps; internvl2 prefill of VL_B rows of VL_PROMPT
+# tokens over 256 patches, then VL_STEPS decode steps; then phase 7's
+# traffic through ServeEngine (whisper contiguous, internvl2 both layouts)
+FAM_CPU = (("whisper-base", 6, (False,)), ("internvl2-2b", 2, (True, False)))
+FAM_CPU_B, FAM_CPU_PROMPT, FAM_CPU_STEPS = 2, 300, 8
+WH_B, WH_PROMPT, WH_STEPS = 8, 16, 32
+VL_B, VL_PROMPT, VL_STEPS = 4, 320, 32
+FAM_DRAINS = (("whisper-base", (False,)), ("internvl2-2b", (True, False)))
+# (c): kernel 7 not causal at whisper's shapes (B, S, C, heads, D, the
+# positions: the encoder's 0..C-1, cross-attention's 0), and kernels 5-8 at
+# internvl2's heads
+ENC_SHAPES = {"whisper encoder (S = C = 1500)": (8, 1500, 1500, 8, 64,
+                                                 "arange"),
+              "whisper cross, a decode step (S 1)": (8, 1, 1500, 8, 64,
+                                                     "zeros"),
+              "whisper cross, a prefill chunk (S 128)": (8, 128, 1500, 8, 64,
+                                                         "zeros")}
+ENC_KEYS_SWEEP = (128, 256, 512, 1536)   # 1536: one split over 1500 keys
+VLM_HEADS = {
+    "internvl2-2b's heads (G 2)": (16, 8, 128, 0,
+                                   ("paged_decode", "paged_flash", "flash",
+                                    "decode")),
+}
 
 
 def fail(msg: str) -> None:
@@ -804,14 +860,15 @@ def attn_calls(c, window=0):
     }
 
 
-def attn_work(torch, q, q_pos, kv_pos, Hkv, window=0, table_bytes=0):
+def attn_work(torch, q, q_pos, kv_pos, Hkv, window=0, table_bytes=0,
+              causal=True):
     """(bytes, flops) the function needs on these inputs: each live K/V
     entry (one some query of its row attends) read once per kv head with
     its position, q read and the output written once, the table; 4*D
     operations per valid (query row, head, key)."""
     B, S, Hq, D = q.shape
     kp_, qp_ = kv_pos[:, None, :].long(), q_pos[:, :, None].long()
-    valid = (kp_ >= 0) & (kp_ <= qp_)
+    valid = (kp_ >= 0) & ((kp_ <= qp_) if causal else (qp_ == qp_))
     if window:
         valid &= (qp_ - kp_) < window
     live = int(valid.any(dim=1).sum())
@@ -864,7 +921,7 @@ def decode_report(torch, name, c, kern, capacity, label):
     unless two calls are bitwise equal."""
     from repro_torch.kernels import attention_common as ac
     B, _, Hq, D = c["q"].shape
-    Hkv = c["kp"].shape[2]
+    Hkv = c["k"].shape[2]
     split_keys, splits = ac.decode_split(capacity)
     tiles = -(-(Hq // Hkv) // ac.ROWS)
     smem = ac.decode_smem_bytes(D, c["q"].dtype, split_keys)
@@ -903,7 +960,7 @@ def flash_report(torch, name, c, kern, capacity, label):
     resources, and fail unless two calls are bitwise equal."""
     from repro_torch.kernels import attention_common as ac
     B, S, Hq, D = c["q"].shape
-    Hkv = c["kp"].shape[2]
+    Hkv = c["k"].shape[2]
     rows = ac.flash_rows(c["q"].dtype)
     tiles, split_keys, splits = ac.flash_split(
         B, S, Hq // Hkv, Hkv, capacity, rows=rows,
@@ -925,21 +982,22 @@ def flash_report(torch, name, c, kern, capacity, label):
           f"calls bitwise equal", flush=True)
 
 
-def flash_sweep(torch, name, c, kern, plain, capacity, label):
+def flash_sweep(torch, name, c, kern, plain, capacity, label,
+                keys_sweep=FLASH_SWEEP[1]):
     """Cold-L2 time of a bf16 flash call at each rows per block x keys per
-    split of FLASH_SWEEP (the split actually taken beside each: the rule
-    halves it while the grid would leave SMs idle), each setting first held
-    against the plain version within LOOSE; the defaults restored after.
-    Returns the largest error."""
+    split of FLASH_SWEEP (or ``keys_sweep``; the split actually taken
+    beside each: the rule halves it while the grid would leave SMs idle),
+    each setting first held against the plain version within LOOSE; the
+    defaults restored after.  Returns the largest error."""
     from repro_torch.kernels import attention_common as ac
     B, S, Hq, _ = c["q"].shape
-    Hkv = c["kp"].shape[2]
+    Hkv = c["k"].shape[2]
     default = (ac.FLASH_ROWS, ac.FLASH_SPLIT_KEYS)
     want = plain()
     cells, err = [], 0.0
     try:
         for rows in FLASH_SWEEP[0]:
-            for keys in FLASH_SWEEP[1]:
+            for keys in keys_sweep:
                 ac.FLASH_ROWS, ac.FLASH_SPLIT_KEYS = rows, keys
                 _, took, splits = ac.flash_split(B, S, Hq // Hkv, Hkv,
                                                  capacity, rows=rows)
@@ -1592,7 +1650,13 @@ def token_card_vs_cpu(torch, dev, arch="starcoder2-3b", layers=2,
 
     def last_logits(params, seq, device):
         toks = torch.as_tensor(seq, dtype=torch.long, device=device)[None]
+        # an encoder-decoder's decoder reads its cross K/V from a cache:
+        # the zero rows of a fresh one, as the engine serves it
+        caches = (TT.init_caches(cfg, 1, len(seq), device=device)
+                  if cfg.family == "encdec" else None)
         logits, _, _ = TT.forward(cfg, params, toks, opts=opts,
+                                  caches=caches,
+                                  cache_index=0 if caches else None,
                                   last_only=True)
         return logits[0, -1].float().cpu()
 
@@ -2147,11 +2211,12 @@ def eda_runtime(torch, dev, card, root):
 # ---------------------------------------------------------------------------
 
 
-def new_shape_kernels(torch, dev, rows):
-    """Phase 16 (c): kernels 5-8 at the new configs' heads against their
-    plain versions (fp32 TIGHT with a 1031-key row, bf16 LOOSE at the
-    token path's shapes: 8 decode rows, one 128-token chunk) and timed in
-    bf16 beside SDPA and the bound; the errors fold into the rows."""
+def new_shape_kernels(torch, dev, rows, heads=NEW_HEADS):
+    """Phases 16 (c) and 17 (c): kernels 5-8 at the new configs' heads
+    against their plain versions (fp32 TIGHT with a 1031-key row, bf16
+    LOOSE at the token path's shapes: 8 decode rows, one 128-token chunk)
+    and timed in bf16 beside SDPA and the bound; the errors fold into the
+    rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention_common import paged_gather_plain
     gen = torch.Generator().manual_seed(3)
@@ -2159,7 +2224,7 @@ def new_shape_kernels(torch, dev, rows):
     lens = torch.randint(TOK_PROMPT[0], TOK_PROMPT[1] + 1, (TOK_SLOTS,),
                          generator=rng).tolist()
     longest = TOK_PROMPT[1] + TOK_NEW - 1
-    for label, (Hq, Hkv, D, window, names) in NEW_HEADS.items():
+    for label, (Hq, Hkv, D, window, names) in heads.items():
         # the engine's table columns: a window's block ring, else the
         # capacity's blocks
         M = (-(-(window - 1) // TOK_BLOCK) + 1 if window
@@ -2263,6 +2328,242 @@ def new_arch_drain(torch, dev, card, arch, layers, layouts, requests):
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+
+
+def family_extras(torch, cfg, B, device, seed):
+    """The stub frontend's input for ``cfg``: whisper's (B, 1500, d_model)
+    frame embeddings or internvl2's (B, 256, d_model) patch embeddings,
+    drawn on the host from ``seed`` (the same on both sides of a card vs
+    CPU check), in the compute dtype."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "encdec":
+        key, n = "frames", cfg.encoder_seq
+    else:
+        key, n = "patches", cfg.num_patches
+    x = torch.randn(B, n, cfg.d_model, generator=gen)
+    return {key: x.to(device, getattr(torch, cfg.compute_dtype))}
+
+
+def family_prefill_card_vs_cpu(torch, dev, cfg, card_params, cpu_params):
+    """Phase 17 (a): ``prefill`` of FAM_CPU_B rows with frames or patches,
+    then FAM_CPU_STEPS greedy decode steps on the CPU; the card fed the
+    CPU's tokens (teacher-forced).  Every step's logits within TOKEN_TOL,
+    and the card's argmax equals the CPU's token at each step (its own
+    greedy stream is then the CPU's) unless the CPU's top-two margin is
+    below TOKEN_TOL (printed if so)."""
+    import numpy as np
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunOpts
+    opts = RunOpts(use_kernels=True)
+    S = FAM_CPU_PROMPT if cfg.family == "vlm" else 16
+    toks = torch.as_tensor(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (FAM_CPU_B, S)), dtype=torch.long)
+    t0 = time.perf_counter()
+    out = {}
+    for device, params in (("cpu", cpu_params), (dev, card_params)):
+        extras = family_extras(torch, cfg, FAM_CPU_B, device, 18)
+        logits, caches = TT.prefill(cfg, params, toks.to(device),
+                                    extras=extras, opts=opts)
+        steps = [logits[:, -1].float().cpu()]
+        fed = out.get("cpu", {}).get("tokens")
+        tokens = []
+        for i in range(FAM_CPU_STEPS):
+            nxt = (torch.argmax(steps[-1], dim=-1) if fed is None
+                   else fed[i])
+            tokens.append(nxt)
+            logits, caches = TT.decode_step(cfg, params, caches,
+                                            nxt[:, None].to(device), S + i,
+                                            opts=opts)
+            steps.append(logits[:, -1].float().cpu())
+        out[str(device)] = {"logits": torch.stack(steps, 1),
+                            "tokens": tokens}
+    cpu, card = out["cpu"]["logits"], out[str(dev)]["logits"]
+    d = float((card - cpu).abs().max())
+    if not d <= TOKEN_TOL:
+        fail(f"{cfg.name} prefill/decode logits differ card vs CPU by "
+             f"{d:.3g} > {TOKEN_TOL}")
+    top = torch.topk(cpu, 2, dim=-1).values
+    margin = top[..., 0] - top[..., 1]
+    parted = torch.argmax(card, -1) != torch.argmax(cpu, -1)
+    if bool((parted & (margin >= TOKEN_TOL)).any()):
+        fail(f"{cfg.name}: card and CPU argmax part where the CPU's "
+             f"top-two margin is >= {TOKEN_TOL}")
+    what = (f"frames ({FAM_CPU_B}, {cfg.encoder_seq}, {cfg.d_model})"
+            if cfg.family == "encdec" else f"{cfg.num_patches} patches")
+    print(f"fam/CPU {cfg.name} prefill {FAM_CPU_B} x {S} with {what} + "
+          f"{FAM_CPU_STEPS} decode steps: max |card - CPU| logit {d:.3g} "
+          f"(tol {TOKEN_TOL}); argmax "
+          f"{'equal at every step' if not parted.any() else 'parts only under the margin'}"
+          f"; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def timed_s(torch, fn, reps=5):
+    """Median wall seconds of ``fn`` (synchronised) over ``reps`` calls,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def family_full_path(torch, dev, card, arch):
+    """Phase 17 (b): ``arch`` at full width and depth, bf16, weights drawn
+    on the card: ``prefill`` with frames or patches, then greedy
+    ``decode_step``s; every kernel count zeroed just before and read just
+    after, and each must equal what the layers call: whisper's prefill
+    launches flash in each encoder layer (not causal), each decoder
+    layer's self-attention and its cross-attention, each step decode in
+    each decoder layer and flash (cross, S 1) beside it; internvl2's
+    prefill flash in each layer, each step decode.  Prints the encoder's
+    ms (whisper), prefill ms and decode ms/step.  Returns the launches."""
+    import numpy as np
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunOpts
+    cfg = get_arch(arch)
+    params = draw_on_card(torch, cfg, dev)
+    opts = RunOpts(use_kernels=True)
+    B, S, steps = ((WH_B, WH_PROMPT, WH_STEPS) if cfg.family == "encdec"
+                   else (VL_B, VL_PROMPT, VL_STEPS))
+    toks = torch.as_tensor(np.random.default_rng(TOK_SEED).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.long, device=dev)
+    extras = family_extras(torch, cfg, B, dev, 19)
+    enc_ms = None
+    if cfg.family == "encdec":
+        enc_ms = timed_s(torch, lambda: TT.encode(
+            cfg, params, extras["frames"], opts=opts)) * 1e3
+    pre_ms = timed_s(torch, lambda: TT.prefill(cfg, params, toks,
+                                               extras=extras, opts=opts),
+                     reps=3) * 1e3
+    kops.reset_launches()
+    logits, caches = TT.prefill(cfg, params, toks, extras=extras, opts=opts)
+    finite = torch.isfinite(logits).all()
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, caches = TT.decode_step(cfg, params, caches, nxt, S + i,
+                                        opts=opts)
+        finite &= torch.isfinite(logits).all()
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = kops.launches()
+    if not bool(finite):
+        fail(f"{arch} prefill/decode gave non-finite logits")
+    L = cfg.num_layers
+    if cfg.family == "encdec":
+        want = {"flash": cfg.num_encoder_layers + 2 * L + steps * L,
+                "decode": steps * L}
+    else:
+        want = {"flash": L, "decode": steps * L}
+    got = {n: k for n, k in launches.items() if k}
+    if got != want:
+        fail(f"{arch} prefill + {steps} steps launched {got}, expected "
+             f"{want}")
+    total, _ = cfg.param_counts()
+    what = (f"frames ({B}, {cfg.encoder_seq}, {cfg.d_model}); encoder "
+            f"{enc_ms:.3f} ms" if enc_ms is not None
+            else f"{cfg.num_patches} patches")
+    print(f"{arch} full width and depth bf16: prefill {B} x {S} tokens with "
+          f"{what}; prefill {pre_ms:.3f} ms; {steps} decode steps "
+          f"{dec_ms:.3f} ms/step ({B * steps / (dec_ms * steps / 1e3):.1f} "
+          f"tokens/s) on {card}; launches {got}", flush=True)
+    del caches, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def not_causal_kernels(torch, dev, rows):
+    """Phase 17 (c): kernel 7 with ``causal=False`` at whisper-base's
+    shapes (ENC_SHAPES) against its plain version, fp32 at TIGHT and bf16
+    at LOOSE, two calls bitwise equal, one launch a call, ticket counters
+    back at 0; in bf16 its rows, split, grid and resources, a sweep of
+    rows x keys per split (one split over the 1500 keys included), and its
+    time beside the plain version, SDPA (no mask: every key is valid) and
+    the bound.  At S 1 the decode kernel on the same inputs too: with
+    every position 0 its causal rows see every key, so it computes the
+    same function, and its time says what the 64-row flash tile costs a
+    one-token step.  The errors fold into the rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_common as ac
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    gen = torch.Generator().manual_seed(5)
+    for label, (B, S, C, H, D, positions) in ENC_SHAPES.items():
+        for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+            mk = lambda *shape: torch.randn(*shape, generator=gen).to(
+                dev, dtype)
+            q, k, v = mk(B, S, H, D), mk(B, C, H, D), mk(B, C, H, D)
+            if positions == "arange":
+                q_pos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
+                kv_pos = torch.arange(C, dtype=torch.int32).repeat(B, 1)
+            else:
+                q_pos = torch.zeros(B, S, dtype=torch.int32)
+                kv_pos = torch.zeros(B, C, dtype=torch.int32)
+            q_pos, kv_pos = q_pos.to(dev), kv_pos.to(dev)
+            c = dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
+            kern = lambda c=c: fa_k.flash_attention(
+                c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"],
+                causal=False)
+            plain = lambda c=c: fa_k.flash_attention_plain(
+                c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"],
+                causal=False)
+            n0 = fa_k.LAUNCHES["flash"]
+            first, second = kern(), kern()
+            torch.cuda.synchronize()
+            if fa_k.LAUNCHES["flash"] != n0 + 2:
+                fail(f"flash {label}: not one launch a call")
+            if not torch.equal(first, second):
+                fail(f"flash {label}: two calls on the same inputs differ")
+            if ac.flash_counters(dev).any():
+                fail(f"flash {label}: ticket counters not back at 0")
+            err = max_err(first, plain(), tol=tol)
+            rows["flash"]["max_abs_err"] = max(rows["flash"]["max_abs_err"],
+                                               err)
+            dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+            print(f"kernel flash not causal at {label}: B={B} S={S} C={C} "
+                  f"{H} heads of {D} {dt}: max abs err {err:.3g} "
+                  f"({'TIGHT' if tol is TIGHT else 'LOOSE'}), repeat "
+                  f"bitwise, one launch a call", flush=True)
+            if dtype != torch.bfloat16:
+                continue
+            flash_report(torch, "flash", c, kern, C, f"not causal at {label}")
+            err = flash_sweep(torch, "flash", c, kern, plain, C,
+                              f"not causal at {label}", ENC_KEYS_SWEEP)
+            rows["flash"]["max_abs_err"] = max(rows["flash"]["max_abs_err"],
+                                               err)
+            nbytes, flops, _ = attn_work(torch, q, q_pos, kv_pos, H,
+                                         causal=False)
+            qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qT, kT, vT)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+            extra = ""
+            if S == 1:
+                dec = lambda: dec_k.decode_attention(q, k, v, q_pos, kv_pos)
+                d_err = max_err(dec(), first, tol=LOOSE)
+                extra = (f"; decode kernel on the same inputs "
+                         f"{time_ms(dec):.4f} ms (vs flash: max abs "
+                         f"{d_err:.3g})")
+            print(f"kernel flash not causal at {label}: bf16 cold L2: kernel "
+                  f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  library (sdpa) "
+                  f"{l_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by}, "
+                  f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP){extra}",
+                  flush=True)
+            del qT, kT, vT
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2500,6 +2801,35 @@ def main() -> int:
     phase_done("16 (b)", "new archs drains")
     new_shape_kernels(torch, dev, rows)
     phase_done("16 (c)", "attention kernels at the new heads")
+
+    # ---- phase 17: the encoder-decoder and VLM families --------------------
+    for arch, layers, layouts in FAM_CPU:
+        fam = token_card_vs_cpu(torch, dev, arch, layers, layouts)
+        family_prefill_card_vs_cpu(torch, dev, *fam)
+        del fam
+    phase_done("17 (a)", "encoder-decoder and VLM card vs CPU")
+    fam_launches = {name: 0 for name in ATTN_REPLACES}
+    for arch in ("whisper-base", "internvl2-2b"):
+        got = family_full_path(torch, dev, card, arch)
+        for name in ATTN_REPLACES:
+            fam_launches[name] += got[name]
+    for arch, layouts in FAM_DRAINS:
+        for layout, got in new_arch_drain(torch, dev, card, arch, None,
+                                          layouts, TOK_REQUESTS).items():
+            print(f"{arch} {layout} drain launches: "
+                  + ", ".join(f"{n} {got[n]}" for n in ATTN_REPLACES),
+                  flush=True)
+            for name in ATTN_REPLACES:
+                fam_launches[name] += got[name]
+    for name in ATTN_REPLACES:
+        rows[name]["launches"] += fam_launches[name]
+    print(f"attention launches on phase 17's paths {fam_launches}; with "
+          f"phases 7 and 16's: "
+          f"{ {n: rows[n]['launches'] for n in ATTN_REPLACES} }", flush=True)
+    phase_done("17 (b)", "encoder-decoder and VLM at full size")
+    not_causal_kernels(torch, dev, rows)
+    new_shape_kernels(torch, dev, rows, VLM_HEADS)
+    phase_done("17 (c)", "flash not causal; kernels 5-8 at internvl2's heads")
     print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)

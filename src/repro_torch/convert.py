@@ -22,8 +22,12 @@ the MoE layers stacked); an MoE layer's experts are already stacked
 them is the one unstacked.  MLA trees (``wq_a``/``q_norm``/``wq_b`` or
 ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``) and latent caches
 (``c``, ``k_rope``, ``pos``), recurrent state leaves (``h``, ``conv``,
-``C``, ``n``, ``m``, ``c``) are carried across as they are.  Weights keep
-their ``(d_in, d_out)`` layout: no transpose.
+``C``, ``n``, ``m``, ``c``) are carried across as they are.  An
+encoder-decoder's encoder segments unstack the same way with
+``encoder_plan`` (its ``final_norm`` beside them); its decoder layers'
+``ln_cross``/``cross`` weights and ``cross_k``/``cross_v`` cache leaves, and
+a VLM's ``patch_proj``, are carried across as they are.  Weights keep their
+``(d_in, d_out)`` layout: no transpose.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import plan_layers
+from repro_torch.models.transformer import encoder_plan, plan_layers
 from repro_torch.models.vision import from_hwio
 
 
@@ -56,17 +60,21 @@ def pose_from_jax(np_tree: dict, device=None) -> dict:
     return from_hwio(_tensors(np_tree, resolve_device(device)))
 
 
-def _unstack(segments: list, cfg: ModelConfig) -> list:
-    """The reference's segment list -> one tree per layer, in order."""
+def _unstack(segments: list, cfg: ModelConfig, plan=None,
+             layers_wanted=None) -> list:
+    """The reference's segment list -> one tree per layer, in order (the
+    decoder's plan unless ``plan`` is given)."""
+    plan = plan_layers(cfg) if plan is None else plan
+    wanted = cfg.num_layers if layers_wanted is None else layers_wanted
     layers = []
-    for (sig, repeats), seg in zip(plan_layers(cfg), segments):
+    for (sig, repeats), seg in zip(plan, segments):
         for r in range(repeats):
             for j in range(len(sig)):
                 tree = seg[f"b{j}"]
                 layers.append(_index(tree, r) if repeats > 1 else tree)
-    if len(layers) != cfg.num_layers:
+    if len(layers) != wanted:
         raise ValueError(f"{len(layers)} layers unstacked, config has "
-                         f"{cfg.num_layers}")
+                         f"{wanted}")
     return layers
 
 
@@ -78,12 +86,24 @@ def _index(tree: Any, r: int) -> Any:
 
 def transformer_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     """Reference transformer parameters (numpy leaves, scanned segments)
-    -> ``{"embed", "final_norm", "layers": [per layer]}`` on ``device``."""
+    -> ``{"embed", "final_norm", "layers": [per layer]}`` on ``device``,
+    plus ``"encoder": {"layers", "final_norm"}`` (encoder-decoder) and
+    ``"patch_proj"`` (VLM) where the reference tree has them."""
     dev = resolve_device(device)
-    return {"embed": _tensors(np_tree["embed"], dev),
-            "final_norm": _tensors(np_tree["final_norm"], dev),
-            "layers": [_tensors(t, dev)
-                       for t in _unstack(np_tree["segments"], cfg)]}
+    out = {"embed": _tensors(np_tree["embed"], dev),
+           "final_norm": _tensors(np_tree["final_norm"], dev),
+           "layers": [_tensors(t, dev)
+                      for t in _unstack(np_tree["segments"], cfg)]}
+    if "encoder" in np_tree:
+        enc = np_tree["encoder"]
+        out["encoder"] = {
+            "layers": [_tensors(t, dev) for t in _unstack(
+                enc["segments"], cfg, encoder_plan(cfg),
+                cfg.num_encoder_layers)],
+            "final_norm": _tensors(enc["final_norm"], dev)}
+    if "patch_proj" in np_tree:
+        out["patch_proj"] = _tensors(np_tree["patch_proj"], dev)
+    return out
 
 
 def caches_from_jax(np_caches: list, cfg: ModelConfig, device=None) -> list:

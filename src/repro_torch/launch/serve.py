@@ -11,8 +11,11 @@ and this prints the per-class turnaround/skip table like the paper's §4.2.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --requests 12 --slots 4 --esd 2.0 [--device cpu]
 
-``--arch`` takes any ported arch (``starcoder2-3b``, ``recurrentgemma-9b``,
-``xlstm-350m``), each at its reduced size.
+``--arch`` takes any arch of the registry (``starcoder2-3b``,
+``recurrentgemma-9b``, ``xlstm-350m``, ``whisper-base``, ``internvl2-2b``,
+...), each at its reduced size.  As the reference's launcher, it passes no
+frames or patches: a whisper-base request cross-attends to the zero
+``cross_k``/``cross_v`` rows of its fresh cache.
 """
 from __future__ import annotations
 

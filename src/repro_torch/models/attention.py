@@ -25,10 +25,15 @@ Where the port departs from the reference's array semantics:
   * ``dynamic_update_slice`` clamps its start to ``cap - S``; the port's
     chunk write clamps the same way.
 
+Cross-attention (the encoder-decoder's): the decoder's queries against the
+encoder's K/V, every position 0, not causal, no window, through
+``dot_attention``, so ``use_kernels`` runs the flash kernel in its
+non-causal form (at S = 1 too: the decode kernel takes causal rows only).
+
 Only the options the token path reads are ported: ``RunOpts.use_kernels``.
 The reference's ``interpret``, ``remat``, ``block_kv``, ``unroll_scan``,
-``attn_specs`` and ``mxu_bf16`` (with ``blocked_dot_attention`` and the
-cross-attention functions) wait for the slices that need them.
+``attn_specs`` and ``mxu_bf16`` (with ``blocked_dot_attention``) wait for
+the slices that need them.
 """
 from __future__ import annotations
 
@@ -317,3 +322,36 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                                           cache_capacity or S + 64)
     y = dense(p["wo"], out.reshape(B, S, cfg.q_dim))
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_params(cfg: ModelConfig) -> dict:
+    return attn_params(cfg)
+
+
+def cross_attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     enc_kv: dict, opts: RunOpts = DEFAULT_OPTS
+                     ) -> torch.Tensor:
+    """x: (B,S,D); enc_kv: {"k","v"} (B,T,Hkv,Dh) from the encoder (or the
+    cache).  Every query and key sits at position 0, not causal: each
+    query attends to all T keys."""
+    B, S, _ = x.shape
+    q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    T = enc_kv["k"].shape[1]
+    q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    out = dot_attention(q, enc_kv["k"], enc_kv["v"], q_pos, kv_pos,
+                        causal=False, window=0, opts=opts)
+    return dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+
+
+def encode_cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> dict:
+    """The encoder output's cross K/V, each (B, T, Hkv, Dh)."""
+    B, T, _ = enc_out.shape
+    k = dense(p["wk"], enc_out).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = dense(p["wv"], enc_out).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": k, "v": v}

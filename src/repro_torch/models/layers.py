@@ -137,11 +137,15 @@ def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def sinusoidal_positions(positions: torch.Tensor, dim: int,
                          max_timescale: float = 10_000.0) -> torch.Tensor:
-    """(..., dim) sinusoidal embedding for integer positions (...,)."""
+    """(..., dim) sinusoidal embedding for integer positions (...,).  The
+    frequencies are built on ``positions``' device (no host copy a call),
+    in fp32, with the reference's operations in its order."""
     half = dim // 2
-    freqs = torch.exp(-torch.log(torch.tensor(max_timescale))
-                      * torch.arange(half, dtype=torch.float32) / half)
-    ang = positions[..., None].float() * freqs.to(positions.device)
+    dev = positions.device
+    freqs = torch.exp(-torch.log(torch.tensor(max_timescale, device=dev))
+                      * torch.arange(half, dtype=torch.float32, device=dev)
+                      / half)
+    ang = positions[..., None].float() * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

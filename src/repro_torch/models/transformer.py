@@ -1,5 +1,6 @@
 """Model assembly: params, caches, forward, for attention (GQA or MLA,
-dense or MoE MLP), RG-LRU and xLSTM stacks.
+dense or MoE MLP), RG-LRU and xLSTM stacks, the encoder-decoder and the
+VLM.
 
 Counterpart of the reference's ``models/transformer.py``, for dense
 attention stacks (GQA, full or sliding window, biases, the parallel block:
@@ -8,12 +9,18 @@ stacks (``granite-moe-1b-a400m``; layers from ``moe.first_dense_layers``
 on route their MLP through ``models/moe.py``), multi-head latent attention
 (``deepseek-v2-236b``: ``models/mla.py``, MLA + MoE with one dense first
 layer), the hybrid RG-LRU + local-attention stack (``recurrentgemma-9b``)
-and the mLSTM + sLSTM stack (``xlstm-350m``).  The reference groups layers into
+and the mLSTM + sLSTM stack (``xlstm-350m``); the encoder-decoder
+(``whisper-base``: a non-causal encoder stack over stub frame embeddings,
+sinusoidal positions, a cross-attention branch in every decoder layer) and
+the VLM (``internvl2-2b``: stub patch embeddings projected by
+``patch_proj`` over the prompt's first ``num_patches`` embeddings).  The
+reference groups layers into
 scanned segments of stacked parameters (``plan_layers``; hybrid patterns
 become multi-position periods); the port runs its layers as a Python loop
 over per-layer parameter dicts (``params["layers"]``) and per-layer cache
 dicts (a list), with nothing stacked.  ``convert.transformer_from_jax``
-unstacks a reference tree into this layout.
+unstacks a reference tree into this layout; the encoder's layers are
+``params["encoder"]["layers"]``, beside its ``final_norm``.
 
 Caches: an attention layer holds a contiguous ring or a paged pool
 (``models/attention.py``), an MLA layer its latent ring ``{"c", "k_rope",
@@ -21,12 +28,16 @@ Caches: an attention layer holds a contiguous ring or a paged pool
 "conv"}`` (RG-LRU), ``{"C", "n", "m"}`` (mLSTM) or ``{"c", "n", "h",
 "m"}`` (sLSTM).  :func:`init_caches` fills them with the reference's
 sentinels by leaf name (:func:`materialize_caches`): int leaves -1, every
-``m`` -1e30, a 2-D ``n`` 1.
+``m`` -1e30, a 2-D ``n`` 1.  An encoder-decoder's attention layers also
+hold ``cross_k``/``cross_v`` (B, ``encoder_seq``, Hkv, Dh) in the compute
+dtype: zeros until a ``prefill`` with frames fills them, and a cache that
+holds them wins over frames passed later, as in the reference.
 
 ``forward`` returns the reference's MoE aux loss (the sum over MoE
-layers; serving ignores it).  The encoder-decoder and VLM families raise
-``NotImplementedError``: they come with ``ROADMAP.md`` queue 1, item 6
-(6.4-6.5).
+layers; serving ignores it).  ``extras`` carries the stub frontends'
+inputs: ``{"frames": (B, T, d_model)}`` (encoder-decoder: ``forward`` runs
+the encoder only when they are given) and ``{"patches": (B, num_patches,
+d_model)}`` (VLM).
 """
 from __future__ import annotations
 
@@ -44,8 +55,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_params,
                                        embed_tokens, mlp_params, norm_params,
-                                       unembed)
-from repro_torch.models.param import init_tree
+                                       sinusoidal_positions, unembed)
+from repro_torch.models.param import P, init_tree
 
 # ---------------------------------------------------------------------------
 # Layer planning
@@ -86,17 +97,25 @@ def plan_layers(cfg: ModelConfig):
     return segments
 
 
+def encoder_plan(cfg: ModelConfig):
+    """The reference's layer plan of the (whisper-style) encoder stack:
+    ``num_encoder_layers`` plain attention blocks, one stacked segment
+    unless ``unroll_layers``.  ``convert`` reads the reference's encoder
+    tree with it."""
+    sig = ((ATTN, False),)
+    if cfg.unroll_layers:
+        return [(sig, 1)] * cfg.num_encoder_layers
+    return [(sig, cfg.num_encoder_layers)]
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
+    """Raise for a layer kind the port does not know."""
     kinds = set(cfg.layer_kinds())
-    if (not kinds <= {ATTN, RGLRU, MLSTM, SLSTM}
-            or cfg.family in ("encdec", "vlm")):
+    if not kinds <= {ATTN, RGLRU, MLSTM, SLSTM}:
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, layers "
-            f"{sorted(kinds)}) is not ported yet: dense, MoE and MLA "
-            f"attention, RG-LRU and xLSTM stacks run; the encoder-decoder "
-            f"and VLM families come with ROADMAP.md queue 1, item 6 "
-            f"(6.4-6.5)")
+            f"{sorted(kinds)}) has a layer kind the port does not run: "
+            f"attention, RG-LRU, mLSTM and sLSTM blocks run")
 
 
 # ---------------------------------------------------------------------------
@@ -104,11 +123,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_params(cfg: ModelConfig, kind: str, moe_flag: bool) -> dict:
+def _block_params(cfg: ModelConfig, kind: str, moe_flag: bool,
+                  cross: bool = False) -> dict:
     p = {"ln1": norm_params(cfg)}
     if kind == ATTN:
         p["attn"] = (mla_mod.mla_params(cfg) if cfg.attention == "mla"
                      else attn_mod.attn_params(cfg))
+        if cross:
+            p["ln_cross"] = norm_params(cfg)
+            p["cross"] = attn_mod.cross_attn_params(cfg)
         if cfg.d_ff > 0 or moe_flag:
             if not cfg.parallel_block:
                 p["ln2"] = norm_params(cfg)
@@ -132,11 +155,24 @@ def _block_params(cfg: ModelConfig, kind: str, moe_flag: bool) -> dict:
 
 
 def model_param_tree(cfg: ModelConfig) -> dict:
-    """Descriptor tree: ``{"embed", "final_norm", "layers": [per layer]}``."""
+    """Descriptor tree: ``{"embed", "final_norm", "layers": [per layer]}``;
+    an encoder-decoder adds ``"encoder": {"layers", "final_norm"}`` (and a
+    cross-attention branch in every decoder layer), a VLM
+    ``"patch_proj": {"w"}``."""
     check_supported(cfg)
-    return {"embed": embed_params(cfg), "final_norm": norm_params(cfg),
-            "layers": [_block_params(cfg, kind, moe_flag)
+    cross = cfg.family == "encdec"
+    tree = {"embed": embed_params(cfg), "final_norm": norm_params(cfg),
+            "layers": [_block_params(cfg, kind, moe_flag, cross=cross)
                        for kind, moe_flag in _layer_sigs(cfg)]}
+    if cfg.family == "encdec":
+        tree["encoder"] = {
+            "layers": [_block_params(cfg, ATTN, False)
+                       for _ in range(cfg.num_encoder_layers)],
+            "final_norm": norm_params(cfg)}
+    if cfg.family == "vlm":
+        tree["patch_proj"] = {"w": P((cfg.d_model, cfg.d_model),
+                                     ("embed", "embed2"))}
+    return tree
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -153,11 +189,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 
 
 def _block_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
-                        capacity: int) -> dict:
+                        capacity: int, cross: bool = False) -> dict:
     if kind == ATTN:
         if cfg.attention == "mla":
-            return mla_mod.mla_cache_shapes(cfg, batch, capacity)
-        return attn_mod.cache_shapes(cfg, batch, capacity)
+            c = mla_mod.mla_cache_shapes(cfg, batch, capacity)
+        else:
+            c = attn_mod.cache_shapes(cfg, batch, capacity)
+        if cross:
+            kv = ((batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim),
+                  getattr(torch, cfg.compute_dtype))
+            c = dict(c, cross_k=kv, cross_v=kv)
+        return c
     if kind == RGLRU:
         return rglru_mod.cache_shapes(cfg, batch)
     if kind == MLSTM:
@@ -189,12 +231,13 @@ def materialize_caches(shapes: dict, device) -> dict:
 def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 device=None) -> List[dict]:
     """Empty contiguous caches, one dict per layer: attention rings (MLA:
-    latent rings) and recurrent states, on the card unless
-    ``device="cpu"``."""
+    latent rings; an encoder-decoder's also zero ``cross_k``/``cross_v``)
+    and recurrent states, on the card unless ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
+    cross = cfg.family == "encdec"
     return [materialize_caches(
-        _block_cache_shapes(cfg, kind, batch, capacity), dev)
+        _block_cache_shapes(cfg, kind, batch, capacity, cross), dev)
         for kind in cfg.layer_kinds()]
 
 
@@ -227,28 +270,49 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 
 def _apply_block(cfg: ModelConfig, kind: str, moe_flag: bool, p: dict,
-                 x: torch.Tensor, *, positions, cache, cache_index,
-                 fill_cache, cache_capacity, pages, opts: RunOpts):
+                 x: torch.Tensor, *, positions, cache, cache_index, causal,
+                 fill_cache, cache_capacity, enc_out, pages, opts: RunOpts):
     """One block.  Returns (x, new_cache, aux): aux is the MoE layer's
-    load-balance loss, None for any other block."""
+    load-balance loss, None for any other block.
+
+    A block with a cross-attention branch reads the encoder's K/V from the
+    cache when it holds ``cross_k`` (even when ``enc_out`` was given, as in
+    the reference), else projects ``enc_out``; a returned cache carries
+    them on."""
     xn = apply_norm(cfg, p["ln1"], x)
     if kind == ATTN:
+        own = (None if cache is None else
+               {k: v for k, v in cache.items() if not k.startswith("cross_")})
         if cfg.attention == "mla":
             a_out, ncache = mla_mod.mla_apply(
-                cfg, p["attn"], xn, positions=positions, cache=cache,
+                cfg, p["attn"], xn, positions=positions, cache=own,
                 cache_index=cache_index, fill_cache=fill_cache,
                 cache_capacity=cache_capacity, opts=opts)
         else:
             a_out, ncache = attn_mod.attn_apply(
-                cfg, p["attn"], xn, positions=positions, cache=cache,
-                cache_index=cache_index, causal=True, fill_cache=fill_cache,
-                cache_capacity=cache_capacity, pages=pages, opts=opts)
+                cfg, p["attn"], xn, positions=positions, cache=own,
+                cache_index=cache_index, causal=causal,
+                fill_cache=fill_cache, cache_capacity=cache_capacity,
+                pages=pages, opts=opts)
+        if "cross" in p:
+            if cache is not None and "cross_k" in cache:
+                enc_kv = {"k": cache["cross_k"], "v": cache["cross_v"]}
+            else:
+                enc_kv = attn_mod.encode_cross_kv(cfg, p["cross"], enc_out)
+            if ncache is not None:
+                dt = getattr(torch, cfg.compute_dtype)
+                ncache = dict(ncache, cross_k=enc_kv["k"].to(dt),
+                              cross_v=enc_kv["v"].to(dt))
         aux = None
         has_mlp = cfg.d_ff > 0 or moe_flag
         if cfg.parallel_block and has_mlp:
             x = x + a_out + apply_mlp(cfg, p["mlp"], xn)
         else:
             x = x + a_out
+            if "cross" in p:
+                xc = apply_norm(cfg, p["ln_cross"], x)
+                x = x + attn_mod.cross_attn_apply(cfg, p["cross"], xc,
+                                                  enc_kv, opts=opts)
             if has_mlp:
                 xn2 = apply_norm(cfg, p["ln2"], x)
                 if moe_flag:
@@ -280,12 +344,74 @@ def _apply_block(cfg: ModelConfig, kind: str, moe_flag: bool, p: dict,
     raise ValueError(kind)
 
 
+def apply_stack(cfg: ModelConfig, layers: list, sigs: list,
+                x: torch.Tensor, *, positions, caches: Optional[list],
+                cache_index, causal: bool, fill_cache: bool,
+                cache_capacity: Optional[int] = None, enc_out=None,
+                pages: Optional[dict] = None, opts: RunOpts = DEFAULT_OPTS):
+    """Run the blocks ``layers`` (per-layer params, signatures ``sigs``)
+    in order.  Returns (x, new_caches (a list, or None without caches),
+    aux: the MoE layers' summed loss, an fp32 0 without one)."""
+    want_cache = caches is not None or fill_cache
+    new_caches: Optional[list] = [] if want_cache else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, ((kind, moe_flag), p) in enumerate(zip(sigs, layers)):
+        x, nc, a = _apply_block(
+            cfg, kind, moe_flag, p, x, positions=positions,
+            cache=caches[i] if caches is not None else None,
+            cache_index=cache_index, causal=causal, fill_cache=fill_cache,
+            cache_capacity=cache_capacity, enc_out=enc_out, pages=pages,
+            opts=opts)
+        if a is not None:
+            aux = aux + a
+        if want_cache:
+            new_caches.append(nc)
+    return x, new_caches, aux
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+           opts: RunOpts = DEFAULT_OPTS) -> torch.Tensor:
+    """frames: (B, T, d_model) stub frontend embeddings -> the encoder's
+    output (B, T, d_model): sinusoidal positions added, the non-causal
+    encoder stack (self-attention with q_pos = kv_pos = 0..T-1), its final
+    norm.  Runs on ``frames``' device."""
+    B, T, _ = frames.shape
+    pos = torch.arange(T, dtype=torch.int32, device=frames.device).repeat(B, 1)
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    enc = params["encoder"]
+    sigs = [(ATTN, False)] * len(enc["layers"])
+    x, _, _ = apply_stack(cfg, enc["layers"], sigs, x, positions=pos,
+                          caches=None, cache_index=None, causal=False,
+                          fill_cache=False, opts=opts)
+    return apply_norm(cfg, enc["final_norm"], x)
+
+
+def _embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  positions: torch.Tensor, extras: dict) -> torch.Tensor:
+    """Token embeddings; an encoder-decoder adds sinusoidal positions; a
+    VLM given ``patches`` writes ``patches @ patch_proj.w`` over the first
+    ``num_patches`` embeddings when the prompt is at least that long (a
+    shorter chunk keeps its token embeddings, as in the reference)."""
+    x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.family == "encdec":
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    if cfg.family == "vlm" and "patches" in extras:
+        patches = (extras["patches"].to(x.dtype)
+                   @ params["patch_proj"]["w"].to(x.dtype))
+        npatch = patches.shape[1]
+        if tokens.shape[1] >= npatch:
+            x = torch.cat([patches, x[:, npatch:]], dim=1)
+    return x
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[list] = None,
             cache_index=None,
             fill_cache: bool = False,
             cache_capacity: Optional[int] = None,
+            extras: Optional[dict] = None,
             last_only: bool = False,
             pages: Optional[dict] = None,
             opts: RunOpts = DEFAULT_OPTS):
@@ -295,8 +421,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     pools with ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}``); they
     are updated in place and returned.  ``aux`` is the reference's MoE
     auxiliary loss: the sum of every MoE layer's, an fp32 0 without
-    one."""
+    one.  ``extras``: ``"frames"`` (encoder-decoder: the encoder runs only
+    when they are given; decode steps omit them and read the cross K/V
+    from the cache) and ``"patches"`` (VLM)."""
     check_supported(cfg)
+    extras = extras or {}
     B, S = tokens.shape
     if positions is None:
         # materialised (not a stride-0 view): the kernels take contiguous
@@ -308,21 +437,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         kp = caches[0]["kp"]
         pages = dict(pages, plan=attn_mod.paged_write_plan(
             positions, pages, kp.shape[0], kp.shape[1]))
-    x = embed_tokens(cfg, params["embed"], tokens)
-    want_cache = caches is not None or fill_cache
-    new_caches: Optional[list] = [] if want_cache else None
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, ((kind, moe_flag), p) in enumerate(zip(_layer_sigs(cfg),
-                                                   params["layers"])):
-        x, nc, a = _apply_block(
-            cfg, kind, moe_flag, p, x, positions=positions,
-            cache=caches[i] if caches is not None else None,
-            cache_index=cache_index, fill_cache=fill_cache,
-            cache_capacity=cache_capacity, pages=pages, opts=opts)
-        if a is not None:
-            aux = aux + a
-        if want_cache:
-            new_caches.append(nc)
+    x = _embed_inputs(cfg, params, tokens, positions, extras)
+    enc_out = None
+    if cfg.family == "encdec" and "frames" in extras:
+        enc_out = encode(cfg, params, extras["frames"], opts=opts)
+    x, new_caches, aux = apply_stack(
+        cfg, params["layers"], _layer_sigs(cfg), x, positions=positions,
+        caches=caches, cache_index=cache_index, causal=True,
+        fill_cache=fill_cache, cache_capacity=cache_capacity,
+        enc_out=enc_out, pages=pages, opts=opts)
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
@@ -331,17 +454,19 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            extras: Optional[dict] = None,
             cache_capacity: Optional[int] = None,
             opts: RunOpts = DEFAULT_OPTS):
     """Returns (last_logits (B,1,V), caches)."""
     logits, caches, _ = forward(cfg, params, tokens, fill_cache=True,
                                 cache_capacity=cache_capacity,
-                                last_only=True, opts=opts)
+                                extras=extras, last_only=True, opts=opts)
     return logits, caches
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: list,
-                tokens: torch.Tensor, index, opts: RunOpts = DEFAULT_OPTS):
+                tokens: torch.Tensor, index, extras: Optional[dict] = None,
+                opts: RunOpts = DEFAULT_OPTS):
     """One decode step.  tokens: (B,1); index: scalar position.  Returns
     (logits (B,1,V), caches)."""
     B = tokens.shape[0]
@@ -349,5 +474,5 @@ def decode_step(cfg: ModelConfig, params: dict, caches: list,
                            device=tokens.device)
     logits, new_caches, _ = forward(cfg, params, tokens, positions=positions,
                                     caches=caches, cache_index=index,
-                                    opts=opts)
+                                    extras=extras, opts=opts)
     return logits, new_caches

@@ -33,6 +33,13 @@ row (sentinels included) and ``insert_row`` copies its dict states in at
 batch axis 0.  Prompts are never padded: a padded tail would corrupt the
 recurrent state.
 
+The encoder-decoder (whisper-base) is contiguous only too (its caches carry
+``cross_k``/``cross_v``); like the reference's engine, this one passes no
+frames or patches, so a whisper slot cross-attends, in every prefill chunk
+and decode step, to the zero rows ``init_caches`` gives it (through the
+flash kernel's non-causal form), and a VLM (internvl2-2b) is served from
+its token embeddings alone.
+
 The reference compiles four jitted dispatch functions, shared by every
 engine of one (cfg, opts, sample); PyTorch runs eagerly, so here they are
 plain closures (:func:`dispatch_fns`).  Sampling stays inside them: one

@@ -1205,3 +1205,120 @@ def test_real_executor_flags_card_equal_cpu(dev, no_tf32):
         want = cpu.flags(stream, getattr(pair, stream))
         assert {i: r["danger"] for i, r in frames.items()} == {
             i: bool(want[i]) for i in frames}
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and VLM families: the flash kernel's non-causal form
+# ---------------------------------------------------------------------------
+
+
+def _not_causal_case(seed, B, S, C, H, D, positions, dtype):
+    """whisper-base's attention inputs: H heads (G 1) of D; the encoder's
+    self-attention has q_pos = kv_pos = 0..C-1 (S = C), cross-attention
+    every position 0."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32)).to(dtype)
+    if positions == "arange":
+        q_pos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
+        kv_pos = torch.arange(C, dtype=torch.int32).repeat(B, 1)
+    else:
+        q_pos = torch.zeros(B, S, dtype=torch.int32)
+        kv_pos = torch.zeros(B, C, dtype=torch.int32)
+    return mk(B, S, H, D), mk(B, C, H, D), mk(B, C, H, D), q_pos, kv_pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,positions", [(1500, "arange"), (1, "zeros"),
+                                         (128, "zeros")],
+                         ids=["encoder-1500", "cross-S1", "cross-S128"])
+def test_flash_kernel_not_causal_at_whisper_shapes(dev, S, positions):
+    """The flash kernel with ``causal=False`` at whisper-base's shapes (B 2,
+    8 heads of 64, G 1, 1500 keys: not a multiple of the 64-key tile): the
+    encoder's S = C = 1500 (24 row tiles, the keys in 256-key splits) and
+    cross-attention's S 1 and 128 over 1500 keys at position 0; fp32 at
+    TIGHT, bf16 at LOOSE against the plain version; one launch a call
+    (``ops.flash_attention`` keeps S = 1 on flash when not causal), repeats
+    bitwise equal, ticket counters back at 0."""
+    from repro_torch.kernels import attention_common as ac
+    for dtype, tol in ((torch.float32, TIGHT), (torch.bfloat16, LOOSE)):
+        args = [t.to(dev) for t in _not_causal_case(
+            15, 2, S, 1500, 8, 64, positions, dtype)]
+        n0 = dict(kops.launches())
+        first = kops.flash_attention(*args, causal=False)
+        second = fa_k.flash_attention(*args, causal=False)
+        torch.cuda.synchronize()
+        got = kops.launches()
+        assert got["flash"] == n0["flash"] + 2
+        assert got["decode"] == n0["decode"]
+        assert torch.equal(first, second)
+        assert not ac.flash_counters(dev).any()
+        want = fa_k.flash_attention_plain(*args, causal=False)
+        torch.testing.assert_close(first.float().cpu(), want.float().cpu(),
+                                   **tol)
+        if positions == "arange":        # keys after a query count
+            causal = fa_k.flash_attention_plain(*args, causal=True)
+            assert not torch.allclose(first.float(), causal.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
+def test_encdec_and_vlm_on_card_match_cpu(dev, arch):
+    """Reduced configs (fp32): ``prefill`` with frames or patches and 4
+    teacher-forced ``decode_step``s give card logits within 1e-3 of the
+    CPU's (the encoder and cross-attention through the flash kernel's
+    non-causal form on the card); ``ServeEngine`` streams equal the CPU's
+    in every layout the arch takes (whisper contiguous; internvl2 paged
+    and contiguous), and the card runs launched the layout's kernels."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch(arch).reduced()
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        rng = np.random.default_rng(6)
+        key = "frames" if arch == "whisper-base" else "patches"
+        n = cfg.encoder_seq if key == "frames" else cfg.num_patches
+        extra = torch.as_tensor(rng.normal(size=(2, n, cfg.d_model)).astype(
+            np.float32))
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 9)))
+        follow = rng.integers(0, cfg.vocab_size, (4, 2, 1))
+        opts = RunOpts(use_kernels=True)
+        logits = {}
+        for device in ("cuda", "cpu"):
+            p = params if device == "cpu" else tree_to(params, dev)
+            out, caches = TT.prefill(cfg, p, toks.to(device),
+                                     extras={key: extra.to(device)},
+                                     cache_capacity=16, opts=opts)
+            steps = [out]
+            for i, t in enumerate(follow):
+                out, caches = TT.decode_step(
+                    cfg, p, caches, torch.as_tensor(t).to(device), 9 + i,
+                    opts=opts)
+                steps.append(out)
+            logits[device] = torch.cat(steps, dim=1)
+        torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"],
+                                   rtol=1e-3, atol=1e-3)
+        prompts = [rng.integers(0, cfg.vocab_size, m) for m in (5, 23, 12, 9)]
+        for paged in ((True, False) if TT.paged_eligible(cfg) else (False,)):
+            streams, launches = {}, {}
+            for device in ("cuda", "cpu"):
+                p = params if device == "cpu" else tree_to(params, dev)
+                kops.reset_launches()
+                eng = ServeEngine(cfg, p, slots=2, cache_capacity=48,
+                                  prefill_chunk=8, block_size=4, paged=paged,
+                                  opts=opts, device=device,
+                                  clock=VirtualClock(rates={TOKEN: 0.002,
+                                                            PREFILL: 0.0005}))
+                for i, pr in enumerate(prompts):
+                    eng.submit(Request(rid=f"r{i}", tokens=pr,
+                                       max_new_tokens=6, priority=i % 2))
+                streams[device] = {r.rid: r.generated for r in eng.run()}
+                launches[device] = {k for k, m in kops.launches().items()
+                                    if m}
+            assert streams["cuda"] == streams["cpu"]
+            assert launches["cuda"] == ({"paged_decode", "paged_flash"}
+                                        if paged else {"decode", "flash"})
+            assert not launches["cpu"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -139,6 +139,57 @@ def test_recurrent_entry_points_default_to_the_card(monkeypatch):
     assert mlstm_k.LAUNCHES == {"mlstm_chunkwise": 0}
 
 
+def test_encdec_and_vlm_entry_points_default_to_the_card(monkeypatch):
+    """whisper-base's and internvl2-2b's constructors (``init_params``,
+    ``init_caches`` with the cross K/V leaves, ``init_paged_caches``,
+    ``ServeEngine``) raise without a card unless asked for the CPU; the
+    encoder and the patch path (``encode``, ``forward``/``prefill`` with
+    frames or patches) run where their inputs lie and launch nothing on
+    CPU tensors."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunOpts
+    from repro_torch.serving import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch, extra in (("whisper-base", "frames"),
+                        ("internvl2-2b", "patches")):
+        cfg = get_arch(arch).reduced()
+        inits = [lambda **kw: TT.init_caches(cfg, 2, 16, **kw),
+                 lambda **kw: TT.init_params(
+                     cfg, torch.Generator().manual_seed(0), **kw)]
+        if TT.paged_eligible(cfg):
+            inits.append(lambda **kw: TT.init_paged_caches(cfg, 4, 4, **kw))
+        for init in inits:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                init()
+            assert init(device="cpu")
+        caches = TT.init_caches(cfg, 2, 16, device="cpu")
+        cross = [c["cross_k"] for c in caches if "cross_k" in c]
+        assert len(cross) == (cfg.num_layers if arch == "whisper-base" else 0)
+        assert all(t.device.type == "cpu" and not t.any() for t in cross)
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServeEngine(cfg, params)
+        eng = ServeEngine(cfg, params, device="cpu")
+        assert eng.paged == (arch == "internvl2-2b")
+        n = cfg.encoder_seq if extra == "frames" else cfg.num_patches
+        extras = {extra: torch.rand(2, n, cfg.d_model)}
+        opts = RunOpts(use_kernels=True)
+        kops.reset_launches()
+        if extra == "frames":
+            assert TT.encode(cfg, params, extras[extra],
+                             opts=opts).device.type == "cpu"
+        logits, caches = TT.prefill(cfg, params,
+                                    torch.zeros(2, 6, dtype=torch.long),
+                                    extras=extras, opts=opts)
+        assert logits.device.type == "cpu"
+        assert all(t.device.type == "cpu" for c in caches
+                   for t in c.values())
+        assert not any(kops.launches().values())
+
+
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
     """No CUDA here: non-zero exit and no result line.  Alone in a
     directory: the same."""

@@ -342,9 +342,11 @@ def test_convert_unstacks_both_period_plans():
 
 def test_supported_kinds_and_layouts():
     """RG-LRU, mLSTM and sLSTM stacks are accepted and contiguous-only;
-    encoder-decoder and VLM still raise.  An RG-LRU stack with MLA
-    attention is accepted, as the reference accepts it: its attention
-    layers hold latent caches of the reference's shapes."""
+    as encoder-decoder and VLM families their caches take the reference's
+    shapes (cross K/V on the attention layers only); an unknown layer kind
+    raises.  An RG-LRU stack with MLA attention is accepted, as the
+    reference accepts it: its attention layers hold latent caches of the
+    reference's shapes."""
     for arch in (RG, XL):
         cfg = get_arch(arch).reduced()
         TT.check_supported(cfg)
@@ -353,10 +355,20 @@ def test_supported_kinds_and_layouts():
         with pytest.raises(ValueError, match="paged KV cache unsupported"):
             TT.init_paged_caches(cfg, 4, 4, device="cpu")
     base = get_arch(RG).reduced()
-    for bad in (dataclasses.replace(base, family="vlm"),
-                dataclasses.replace(base, family="encdec")):
-        with pytest.raises(NotImplementedError, match=r"item 6 \(6\.4-6\.5\)"):
-            TT.init_caches(bad, 1, 8, device="cpu")
+    shapes = lambda caches: [{k: (tuple(v.shape), v.dtype)
+                              for k, v in c.items()} for c in caches]
+    for family in ("vlm", "encdec"):
+        fam = dataclasses.replace(base, family=family)
+        jfam = dataclasses.replace(jget_arch(RG).reduced(), family=family)
+        got = TT.init_caches(fam, 1, 8, device="cpu")
+        want = convert.caches_from_jax(jax.tree.map(
+            np.asarray, JT.init_caches(jfam, 1, 8)), fam, device="cpu")
+        assert shapes(got) == shapes(want)
+        assert [("cross_k" in c) for c in got] == [
+            family == "encdec" and kind == ATTN for kind in fam.layer_kinds()]
+    with pytest.raises(NotImplementedError, match="layer kind"):
+        TT.init_caches(dataclasses.replace(base, block_pattern=(RGLRU, "x")),
+                       1, 8, device="cpu")
     mla = dataclasses.replace(base, attention="mla", mla=MLAConfig())
     jmla = dataclasses.replace(jget_arch(RG).reduced(), attention="mla",
                                mla=JMLAConfig())

@@ -316,18 +316,41 @@ def test_forward_matches_reference(model, mode):
             _compare_caches(tcache, jcache, tc)
 
 
+def _shapes(tree):
+    return jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[-1]),
+                        tree)
+
+
 def test_unported_architectures_raise():
-    """Encoder-decoder and VLM name the roadmap item that brings them; MoE
-    and MLA are ported (``test_torch_moe.py``, ``test_torch_mla.py``), as
-    are the recurrent kinds (``test_torch_recurrent_models.py``); paged
+    """The encoder-decoder and VLM families build params and caches of the
+    reference's shapes (an encoder-decoder's attention layers carry
+    ``cross_k``/``cross_v``); an unknown layer kind still raises; MoE and
+    MLA are ported (``test_torch_moe.py``, ``test_torch_mla.py``), as are
+    the recurrent kinds (``test_torch_recurrent_models.py``); paged
     eligibility matches the reference's rule."""
     base = get_arch(ARCH).reduced()
-    for cfg in (dataclasses.replace(base, family="encdec"),
-                dataclasses.replace(base, family="vlm")):
-        with pytest.raises(NotImplementedError, match=r"item 6 \(6\.4-6\.5\)"):
-            TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match=r"item 6 \(6\.4-6\.5\)"):
-            TT.init_caches(cfg, 1, 8, device="cpu")
+    for family in ("encdec", "vlm"):
+        cfg = dataclasses.replace(base, family=family)
+        jcfg = dataclasses.replace(jget_arch(ARCH).reduced(), family=family)
+        TT.check_supported(cfg)
+        got = TT.init_caches(cfg, 1, 8, device="cpu")
+        want = convert.caches_from_jax(_np(JT.init_caches(jcfg, 1, 8)), cfg,
+                                       device="cpu")
+        assert _shapes(got) == _shapes(want)
+        assert ("cross_k" in got[0]) == (family == "encdec")
+        own = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        conv = convert.transformer_from_jax(
+            _np(JT.init_params(jcfg, jax.random.key(0))), cfg, device="cpu")
+        assert _shapes(own) == _shapes(conv)
+        assert TT.paged_eligible(cfg) == JT.paged_eligible(jcfg)
+    bad = dataclasses.replace(base, block_pattern=("bogus",))
+    with pytest.raises(NotImplementedError, match="layer kind"):
+        TT.check_supported(bad)
+    with pytest.raises(NotImplementedError, match="layer kind"):
+        TT.init_params(bad, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="layer kind"):
+        TT.init_caches(bad, 1, 8, device="cpu")
     for cfg in (dataclasses.replace(base, moe=MoEConfig(num_experts=4,
                                                         top_k=2,
                                                         expert_ff=32)),
