@@ -216,6 +216,51 @@ wall seconds):
                function); kernels 5-8 at internvl2's heads (D 128, G 2) as
                16 (c).  The ``kernels`` line's attention launches are
                phase 7's plus the drains and paths of phases 16-17.
+ 18. training  the port's training path (``train/``, ``launch/train.py``,
+               ``launch/elastic.py``), which launches no hand kernel (the
+               reference trains through its plain path: no Pallas kernel
+               has a VJP): (a) card vs CPU, fp32, weights drawn on the
+               host: starcoder2-3b at full width and 2 layers, gradients
+               of ``make_loss_and_grad`` and one ``make_train_step`` step
+               (grad_accum 2, remat full) on a 4 x 128 ``lm_batches``
+               batch: loss rtol 1e-5, ``grad_norm`` rtol 1e-4, every
+               gradient element within TRAIN_GRAD_TOL (1e-6) of the
+               global norm, updated parameters within TRAIN_ATOL (5% of
+               lr) wherever the gradient decides Adam's step (|g| above a
+               floor set by the CPU's norm, eps and the two tolerances;
+               below it the step is lr times the sign of rounding noise,
+               and the gradient check holds those elements), every
+               parameter finite; then each of the ten archs at
+               ``reduced()`` with frames or patches, one step each under
+               the same rule; (b) starcoder2-3b at full width and depth
+               (3.03 B parameters, bf16, fp32 moments) through the train
+               launcher's ``main`` (``launch.train``: parameters drawn on
+               the card, ``device_prefetch``, async checkpoints): 20 steps
+               of 8 x 512 tokens (grad_accum 2, ``--set remat=full``, lr
+               3e-4, the launcher's warmup of steps // 5 = 4) with a
+               checkpoint every 10: ms/step (median of steps 3-20),
+               tokens/s, peak memory, loss at steps 0 and 19, model
+               TFLOP/s counted as 8 N tokens (forward, recompute,
+               backward), each checkpoint's host snapshot and write
+               seconds; the step-20 checkpoint restored onto the card
+               equal to the final parameters bit for bit; step 10's
+               checkpoint removed (two on disk at a time), ``--resume``
+               for 2 more steps (a blocking save of step 22); then 6 steps
+               at the launcher's default, remat none (ms/step and peak, or
+               that it does not fit); fails unless every loss and grad
+               norm is finite, the loss falls, the resume starts at step
+               20 and ends at 22, and no hand kernel launched; (c)
+               ``launch.elastic.run_supervised`` on ``python -m
+               repro_torch.launch.train --reduced --steps 60 --batch 8
+               --seq 32 --ckpt-every 10 --kill-at-step 25`` on the card:
+               0 after exactly one restart (``max_restarts`` 1), latest
+               checkpoint 60; ``examples/torch_train_tiny_lm.py --steps
+               50`` with its loss falling; (d) each of the six token
+               kernels' entry points (kernels 5-10), given CUDA inputs
+               that require grad under grad mode, raises; under
+               ``torch.no_grad()`` it launches once and equals its plain
+               version.  Repeats of (b) are not claimed bitwise: the
+               embedding's backward accumulates with atomics.
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
 global flags): the flags and the sampled tokens are threshold and argmax
@@ -230,6 +275,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -377,6 +423,34 @@ VLM_HEADS = {
                                    ("paged_decode", "paged_flash", "flash",
                                     "decode")),
 }
+
+# phase 18: training.  (a) card vs CPU at full width, TRAIN_CPU_LAYERS
+# layers, fp32; then every arch at reduced(); (b) full width and depth, bf16
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S = 2, 4, 128
+TRAIN_LR = 1e-3                         # (a): one step at this lr
+TRAIN_GRAD_TOL = 1e-6                   # gradient elements / global norm
+# updated parameters, card vs CPU: within TRAIN_ATOL wherever the gradient
+# decides Adam's step.  A first step is lr * u(g), u(g) = g / (|g| + eps')
+# with eps' = eps / clip scale, and |u'(g)| <= eps' / g^2, so a gradient
+# difference within TRAIN_GRAD_TOL x the norm moves it by at most
+# TRAIN_ATOL where g^2 >= eps' TRAIN_GRAD_TOL norm lr / TRAIN_ATOL: that
+# floor comes from the CPU's norm alone.  Below it (a gradient within a
+# few eps' of 0, as the k bias's, whose exact gradient is 0) the step is
+# lr times the sign of rounding noise: there the gradient check holds
+TRAIN_ATOL = 0.05 * TRAIN_LR
+TRAIN_ARCH_B, TRAIN_ARCH_S = 4, 16      # (a) at reduced()
+TRAIN_ACCUM = 2
+# (b): the train launcher at full width and depth; 20 steps with a
+# checkpoint every 10, then a resume for 2 more, then remat none
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_RESUMED = 8, 512, 20, 2
+TRAIN_NONE_STEPS = 6
+TRAIN_FULL = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq",
+              str(TRAIN_S), "--grad-accum", str(TRAIN_ACCUM), "--lr", "3e-4",
+              "--log-every", "1"]
+TRAIN_ELASTIC = ["--arch", "starcoder2-3b", "--reduced", "--steps", "60",
+                 "--batch", "8", "--seq", "32", "--ckpt-every", "10",
+                 "--kill-at-step", "25"]
 
 
 def fail(msg: str) -> None:
@@ -1620,6 +1694,19 @@ def _leaves(tree):
         yield tree
 
 
+def _leaf_names(tree, path=""):
+    """Each leaf's path, list indices as ``*`` (one name for a leaf of
+    every layer), in ``_leaves``' order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_names(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaf_names(v, f"{path}/*")
+    else:
+        yield path.lstrip("/")
+
+
 def token_card_vs_cpu(torch, dev, arch="starcoder2-3b", layers=2,
                       layouts=(True, False), reduced=False):
     """Phases 8, 12 and 16 (a): full width (the config's ``reduced()``
@@ -2566,6 +2653,363 @@ def not_causal_kernels(torch, dev, rows):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training on the card
+# ---------------------------------------------------------------------------
+
+
+def train_batch(torch, cfg, B, S, seed=0):
+    """One ``lm_batches`` batch (host tensors) with the family's frames or
+    patches from a numpy seed."""
+    import numpy as np
+    from repro_torch.data import lm_batches
+    batch = next(lm_batches(B, S, cfg.vocab_size, seed=seed, steps=1))
+    rng = np.random.default_rng(seed + 100)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def check_train_step(torch, dev, cfg, label, B, S):
+    """One step card vs CPU from one host draw (fp32, grad_accum 2, remat
+    full): the gradients of ``make_loss_and_grad``, then one
+    ``make_train_step`` step.  No hand kernel may launch."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.param import tree_to
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.train.train_step import make_loss_and_grad
+    t0 = time.perf_counter()
+    par = ParallelConfig(grad_accum=TRAIN_ACCUM, remat="full")
+    cpu_params = TT.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    batch = train_batch(torch, cfg, B, S)
+    sides = {"card": (tree_to(cpu_params, dev),
+                      {k: v.to(dev) for k, v in batch.items()}),
+             "cpu": (cpu_params, batch)}
+    grads, steps = {}, {}
+    kops.reset_launches()
+    for side, (params, b) in sides.items():
+        loss, _, g = make_loss_and_grad(cfg, par)(params, b)
+        grads[side] = (float(loss), [t.float().cpu() for t in _leaves(g)])
+        del g
+        step = make_train_step(cfg, par, AdamWConfig(lr=TRAIN_LR,
+                                                     warmup_steps=1))
+        p, _, m = step(params, init_opt_state(params), b)
+        steps[side] = ({k: float(v) for k, v in m.items()},
+                       [t.float().cpu() for t in _leaves(p)])
+    if any(kops.launches().values()):
+        fail(f"train {label}: hand kernels launched {kops.launches()}")
+    (gl_card, g_card), (gl_cpu, g_cpu) = grads["card"], grads["cpu"]
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g_cpu)))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
+    (m_card, p_card), (m_cpu, p_cpu) = steps["card"], steps["cpu"]
+    # where |g| decides the step, card and CPU take the same one
+    scale = min(1.0, 1.0 / max(m_cpu["grad_norm"], 1e-9))   # grad_clip 1
+    floor = math.sqrt(1e-8 / scale * TRAIN_GRAD_TOL * norm * TRAIN_LR
+                      / TRAIN_ATOL)
+    p_err = noise_err = 0.0
+    n_all = 0
+    below = {}                          # leaf name -> elements below floor
+    finite_p = True
+    for a, b, g, name in zip(p_card, p_cpu, g_cpu, _leaf_names(cpu_params)):
+        d = (a - b).abs()
+        decided = g.abs() >= floor
+        p_err = max(p_err, float(torch.where(decided, d, 0.0).max()))
+        noise_err = max(noise_err, float(torch.where(decided, 0.0, d).max()))
+        below[name] = below.get(name, 0) + int((~decided).sum())
+        n_all += d.numel()
+        finite_p = finite_p and bool(torch.isfinite(a).all())
+    n_noise = sum(below.values())
+    most = ", ".join(f"{k} {n}" for k, n in sorted(
+        below.items(), key=lambda kv: -kv[1])[:3] if n)
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+           for k in ("loss", "grad_norm")}
+    finite = finite_p and all(map(
+        lambda x: x == x and abs(x) != float("inf"),
+        list(m_card.values()) + list(m_cpu.values())))
+    print(f"train {label}: loss card {m_card['loss']:.7f} cpu "
+          f"{m_cpu['loss']:.7f} (rel {rel['loss']:.2g}), grad norm card "
+          f"{m_card['grad_norm']:.6g} cpu {m_cpu['grad_norm']:.6g} (rel "
+          f"{rel['grad_norm']:.2g}), max |grad card - cpu| {g_err:.3g} = "
+          f"{g_err / norm:.2g} of the norm (tol {TRAIN_GRAD_TOL:.0e}); max "
+          f"|param card - cpu| after the step {p_err:.3g} where |g| >= "
+          f"{floor:.3g} (tol {TRAIN_ATOL:.3g}); below, {n_noise} of {n_all} "
+          f"elements (most in {most or 'none'}), held by the gradient "
+          f"check, differ by up to {noise_err:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not finite:
+        fail(f"train {label}: a metric or parameter is not finite: "
+             f"{m_card} {m_cpu}")
+    if abs(gl_card - gl_cpu) > 1e-5 * abs(gl_cpu) or rel["loss"] > 1e-5:
+        fail(f"train {label}: loss card {m_card['loss']} vs cpu "
+             f"{m_cpu['loss']}")
+    if rel["grad_norm"] > 1e-4:
+        fail(f"train {label}: grad norm card {m_card['grad_norm']} vs cpu "
+             f"{m_cpu['grad_norm']}")
+    if not g_err <= TRAIN_GRAD_TOL * norm:
+        fail(f"train {label}: a gradient element differs by {g_err:.3g} > "
+             f"{TRAIN_GRAD_TOL} x the global norm {norm:.4g}")
+    if not p_err <= TRAIN_ATOL:
+        fail(f"train {label}: updated parameters differ by {p_err:.3g} "
+             f"(tol {TRAIN_ATOL:.3g}) where |g| >= {floor:.3g}")
+
+
+def train_card_vs_cpu(torch, dev):
+    """Phase 18 (a) (see the module docstring)."""
+    import dataclasses
+    from repro_torch.config import get_arch, list_archs
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                              num_layers=TRAIN_CPU_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    check_train_step(torch, dev, cfg, f"{TRAIN_ARCH} full width, "
+                     f"{TRAIN_CPU_LAYERS} layers, fp32, B {TRAIN_CPU_B} x S "
+                     f"{TRAIN_CPU_S}", TRAIN_CPU_B, TRAIN_CPU_S)
+    archs = list_archs()
+    if len(archs) != 10:
+        fail(f"expected the ten registered archs, got {archs}")
+    for arch in archs:
+        check_train_step(torch, dev, get_arch(arch).reduced(),
+                         f"{arch} reduced(), fp32", TRAIN_ARCH_B,
+                         TRAIN_ARCH_S)
+
+
+def launcher_run(torch, label, args):
+    """``launch.train.main(args)`` on the card with the launch counters and
+    the peak memory zeroed before; fails if a hand kernel launched or a
+    loss or gradient norm is not finite.  Returns its summary and the
+    peak bytes allocated."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as launch_train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    run = launch_train.main(args)
+    launched = {k: n for k, n in kops.launches().items() if n}
+    if launched:
+        fail(f"train {label}: the training path launched hand kernels "
+             f"{launched}")
+    bad = [x for x in run["losses"] + run["grad_norms"]
+           if not x == x or abs(x) == float("inf")]
+    if bad:
+        fail(f"train {label}: a loss or grad norm is not finite: {bad}")
+    return run, torch.cuda.max_memory_allocated()
+
+
+def train_full_width(torch, dev, card):
+    """Phase 18 (b) (see the module docstring).  Returns the numbers it
+    printed."""
+    import shutil
+    import tempfile
+    from repro_torch.config import get_arch
+    from repro_torch.train import checkpoint
+    cfg = get_arch(TRAIN_ARCH)
+    total, _ = cfg.param_counts()
+    tokens = TRAIN_B * TRAIN_S
+    flops = 8 * total * tokens
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    need = 2 * 2 * total                  # two bf16 checkpoints on disk
+    free = shutil.disk_usage(ckpt).free
+    print(f"train full {TRAIN_ARCH}: {free / 1e9:.1f} GB free for its "
+          f"checkpoints ({need / 1e9:.1f} GB needed)", flush=True)
+    if free < need:
+        fail(f"train full: {free / 1e9:.1f} GB free under {ckpt}, "
+             f"{need / 1e9:.1f} GB needed")
+    try:
+        t0 = time.perf_counter()
+        run, peak = launcher_run(torch, "full", TRAIN_FULL + [
+            "--steps", str(TRAIN_STEPS), "--set", "remat=full", "--ckpt",
+            ckpt, "--ckpt-every", "10"])
+        wall = time.perf_counter() - t0
+        ms = [x * 1e3 for x in run["step_s"]]
+        losses = run["losses"]
+        step_ms = statistics.median(ms[2:])
+        out = {"ms_per_step": step_ms,
+               "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak / 1e9,
+               "loss0": losses[0], "loss19": losses[-1],
+               "tflops": flops / (step_ms * 1e-3) / 1e12,
+               "ckpt": run["ckpt"]}
+        ck = ", ".join(f"step {c['step']}: snapshot {c['snapshot_s']:.2f} s, "
+                       f"write {c['write_s']:.2f} s" for c in run["ckpt"])
+        print(f"train full {TRAIN_ARCH} through launch.train: {total / 1e9:.3f}"
+              f" B parameters bf16, fp32 moments, B {TRAIN_B} x S {TRAIN_S} "
+              f"(grad_accum {TRAIN_ACCUM}, remat full, lr 3e-4, warmup "
+              f"{min(20, TRAIN_STEPS // 5)}): {step_ms:.1f} ms/step (median "
+              f"of steps 3-{TRAIN_STEPS}; steps 1-2 {ms[0]:.0f}, {ms[1]:.0f} "
+              f"ms; steps 10 and 20, which take the checkpoints' host "
+              f"snapshots, {ms[9]:.0f} and {ms[19]:.0f} ms; steps 11-12, "
+              f"under the first write, {ms[10]:.0f}, {ms[11]:.0f} ms), "
+              f"{out['tokens_per_s']:.0f} tokens/s, model "
+              f"{out['tflops']:.1f} TFLOP/s (8 N tokens = {flops / 1e12:.1f} "
+              f"TFLOP a step: forward, recompute, backward), peak "
+              f"{out['peak_gb']:.2f} GB allocated, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; checkpoints {ck}; {wall:.1f} s in all; "
+              f"{card}", flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"train full: the loss did not fall: {losses[0]} -> "
+                 f"{losses[-1]}")
+        if [c["step"] for c in run["ckpt"]] != [10, TRAIN_STEPS]:
+            fail(f"train full: checkpoints {run['ckpt']}")
+        t0 = time.perf_counter()
+        saved, step = checkpoint.restore(ckpt, {"params": run["params"]},
+                                         device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = step == TRAIN_STEPS and all(
+            torch.equal(a, b) for a, b in zip(_leaves(saved),
+                                              _leaves(run["params"])))
+        print(f"train full: the launcher's step-{step} checkpoint restored "
+              f"onto the card in {restore_s:.2f} s, equal to its final "
+              f"parameters bit for bit: {same}", flush=True)
+        if not same:
+            fail("train full: the restored checkpoint differs from the "
+                 "launcher's final parameters")
+        out["restore_s"] = restore_s
+        del saved, run
+        # two on disk at a time: the resume stages step 22 beside step 20
+        shutil.rmtree(os.path.join(ckpt, "step_00000010"))
+        t0 = time.perf_counter()
+        res, _ = launcher_run(torch, "resumed", TRAIN_FULL + [
+            "--steps", str(TRAIN_STEPS + TRAIN_RESUMED), "--set",
+            "remat=full", "--ckpt", ckpt, "--resume"])
+        latest = checkpoint.latest_step(ckpt)
+        print(f"train full: --resume from step {res['start_step']}, steps "
+              f"{TRAIN_STEPS}-{TRAIN_STEPS + TRAIN_RESUMED - 1} loss "
+              f"{', '.join(f'{x:.4f}' for x in res['losses'])}, "
+              f"{', '.join(f'{x * 1e3:.0f}' for x in res['step_s'])} ms; "
+              f"blocking save of step {latest}: snapshot "
+              f"{res['ckpt'][-1]['snapshot_s']:.2f} s, write "
+              f"{res['ckpt'][-1]['write_s']:.2f} s; "
+              f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+        if (res["start_step"] != TRAIN_STEPS
+                or len(res["losses"]) != TRAIN_RESUMED
+                or latest != TRAIN_STEPS + TRAIN_RESUMED):
+            fail(f"train full: resumed at {res['start_step']} for "
+                 f"{len(res['losses'])} steps, latest checkpoint {latest}")
+        del res
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    # the launcher's default, remat none, at the same batch
+    try:
+        none, peak = launcher_run(torch, "remat none", TRAIN_FULL + [
+            "--steps", str(TRAIN_NONE_STEPS)])
+    except torch.cuda.OutOfMemoryError as e:
+        out["none"] = None
+        print(f"train full, remat none: does not fit at B {TRAIN_B} x S "
+              f"{TRAIN_S} ({str(e).splitlines()[0]})", flush=True)
+    else:
+        none_ms = statistics.median(x * 1e3 for x in none["step_s"][2:])
+        out["none"] = {"ms_per_step": none_ms, "peak_gb": peak / 1e9}
+        print(f"train full, remat none (the launcher's default): "
+              f"{none_ms:.1f} ms/step (median of steps 3-{TRAIN_NONE_STEPS}),"
+              f" {tokens / none_ms * 1e3:.0f} tokens/s, model "
+              f"{6 * total * tokens / (none_ms * 1e-3) / 1e12:.1f} TFLOP/s "
+              f"(6 N tokens: no recompute), peak {peak / 1e9:.2f} GB "
+              f"allocated; {card}", flush=True)
+        del none
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_entry_points(torch, root):
+    """Phase 18 (c) (see the module docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.elastic import run_supervised
+    from repro_torch.train import checkpoint
+    src = os.path.join(root, "src")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH", "")) if p)
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-elastic-")
+    try:
+        t0 = time.perf_counter()
+        rc = run_supervised(TRAIN_ELASTIC + ["--ckpt", ckpt],
+                            os.path.join(ckpt, "heartbeat.json"),
+                            stall_s=120.0, max_restarts=1)
+        latest = checkpoint.latest_step(ckpt)
+        print(f"elastic: run_supervised returned {rc} with max_restarts 1 "
+              f"(killed at step 25, so one restart), latest checkpoint "
+              f"{latest}; {time.perf_counter() - t0:.1f} s", flush=True)
+        if rc != 0 or latest != 60:
+            fail(f"elastic: rc {rc}, latest step {latest} (want 0, 60)")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    losses = load_example(root, "torch_train_tiny_lm").main(["--steps", "50"])
+    print(f"examples/torch_train_tiny_lm.py --steps 50 on the card: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (all(x == x for x in losses) and losses[-1] < losses[0]):
+        fail(f"the tiny-LM example's loss did not fall: {losses}")
+
+
+def grad_guard_on_card(torch, dev):
+    """Phase 18 (d) (see the module docstring)."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import mlstm as mlstm_k
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_attention as pa_k
+    from repro_torch.kernels import rglru as rglru_k
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S, Hq, Hkv, D, bs = 2, 64, 8, 2, 128, 16
+    q = torch.randn(B, S, Hq, D, device=dev, generator=g)
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=g)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    kp = k.reshape(B * S // bs, bs, Hkv, D).contiguous()
+    ppos = pos.reshape(B * S // bs, bs).contiguous()
+    tbl = torch.arange(B * S // bs, dtype=torch.int32,
+                       device=dev).reshape(B, S // bs).contiguous()
+    a = torch.rand(B, S, 256, device=dev, generator=g)
+    qm = torch.randn(B, S, 4, 64, device=dev, generator=g)
+    gate = torch.randn(B, S, 4, device=dev, generator=g)
+    q1, pos1 = q[:, -1:].contiguous(), pos[:, -1:].contiguous()
+    calls = {
+        "flash": (q, lambda x: fa_k.flash_attention(x, k, k, pos, pos),
+                  lambda x: fa_k.flash_attention_plain(x, k, k, pos, pos)),
+        "decode": (q1, lambda x: dec_k.decode_attention(x, k, k, pos1, pos),
+                   lambda x: dec_k.decode_attention_plain(x, k, k, pos1,
+                                                          pos)),
+        "paged_flash": (q, lambda x: pa_k.paged_flash_attention(
+            x, kp, kp, ppos, tbl, pos), lambda x:
+            pa_k.paged_flash_attention_plain(x, kp, kp, ppos, tbl, pos)),
+        "paged_decode": (q1, lambda x: pa_k.paged_decode_attention(
+            x, kp, kp, ppos, tbl, pos1), lambda x:
+            pa_k.paged_decode_attention_plain(x, kp, kp, ppos, tbl, pos1)),
+        "rglru_scan": (a, lambda x: rglru_k.rglru_scan(x, a),
+                       lambda x: rglru_k.rglru_scan_plain(x, a)),
+        "mlstm_chunkwise": (qm, lambda x: mlstm_k.mlstm_chunkwise(
+            x, qm, qm, gate, gate), lambda x: mlstm_k.mlstm_chunkwise_plain(
+            x, qm, qm, gate, gate)),
+    }
+    for name, (x, kern, plain) in calls.items():
+        kops.reset_launches()
+        try:
+            kern(x.clone().requires_grad_())
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"grad guard: {name} took an input that requires grad")
+        if kops.launches()[name]:
+            fail(f"grad guard: {name} launched before refusing")
+        with torch.no_grad():
+            got = kern(x.clone().requires_grad_())
+        if kops.launches()[name] != 1:
+            fail(f"grad guard: {name} under no_grad launched "
+                 f"{kops.launches()[name]} times")
+        err = max_err(got, plain(x), tol=MLSTM_TOL if name ==
+                      "mlstm_chunkwise" else TIGHT)
+        print(f"grad guard {name}: refuses an input that requires grad; "
+              f"under no_grad one launch, max abs vs plain {err:.3g}",
+              flush=True)
+    kops.reset_launches()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2830,6 +3274,17 @@ def main() -> int:
     not_causal_kernels(torch, dev, rows)
     new_shape_kernels(torch, dev, rows, VLM_HEADS)
     phase_done("17 (c)", "flash not causal; kernels 5-8 at internvl2's heads")
+
+    # ---- phase 18: training on the card ------------------------------------
+    train_card_vs_cpu(torch, dev)
+    phase_done("18 (a)", "training card vs CPU")
+    train_full_width(torch, dev, card)
+    phase_done("18 (b)", f"{TRAIN_ARCH} training at full width and depth")
+    train_entry_points(torch, os.path.dirname(src))
+    phase_done("18 (c)", "train launcher under the elastic supervisor; "
+               "the tiny-LM example")
+    grad_guard_on_card(torch, dev)
+    phase_done("18 (d)", "the kernels refuse inputs that require grad")
     print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)

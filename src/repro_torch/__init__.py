@@ -5,8 +5,8 @@ reference it is held against.  This package imports torch, numpy and the
 standard library only — never JAX and never the reference package.
 
 Ported so far — the vision main path (push -> ledger record), the token
-path (request -> chunked prefill -> decode -> ledger record) and the fleet
-simulator that drives both on virtual clocks:
+path (request -> chunked prefill -> decode -> ledger record), the fleet
+simulator that drives both on virtual clocks, and training on one card:
 
   config / configs              EDAConfig, VisionConfig, ModelConfig and
                                 the arch registry (starcoder2-3b,
@@ -31,11 +31,16 @@ simulator that drives both on virtual clocks:
                                 invariants (the reference's digests)
   serving                       ServeEngine (the token workload shell)
   launch.serve                  the serving CLI
+  train                         AdamW, the train step (lm_loss under
+                                autograd, grad accumulation, remat),
+                                checkpoints in the reference's format
+  launch.train, launch.elastic  the one-card train launcher and its
+                                restart-from-checkpoint supervisor
   core.runtime / core.pipeline  the paper's EDA master runtime
                                 (EDARuntime, SimExecutor, PAPER_DEVICES)
                                 and the double-buffered ingest
-  data                          deterministic dash-cam clips,
-                                device_prefetch
+  data                          deterministic dash-cam clips, the LM
+                                token stream, device_prefetch
   convert                       reference parameter trees and caches ->
                                 port tensors
 """

@@ -4,8 +4,15 @@
 engines.  ``ModelConfig`` (with ``MoEConfig`` and ``MLAConfig``) describes
 a language model the token engine serves; architectures register
 themselves in ``repro_torch.configs`` and are looked up with
-:func:`get_arch`.  The reference's ``ShapeConfig`` and ``ParallelConfig``
-belong to training and the multi-device layer and are not ported yet.
+:func:`get_arch`.  ``ParallelConfig`` carries the training options
+the reference's of that name has and one card honours
+(``train.train_step`` reads ``grad_accum``, ``remat``, ``use_kernels``,
+``block_kv``, ``mxu_bf16`` and ``compress_grads``; ``launch.train`` takes
+any of them through ``--set`` and reads ``opt_state_dtype`` for the Adam
+moments, which the reference's launcher leaves at fp32 whatever it
+says).  The reference's mesh fields (sharding axes, FSDP, expert and
+sequence parallelism, layer scan, donation) come with the multi-device
+layer; ``launch.presets.apply_overrides`` refuses them by name.
 """
 from __future__ import annotations
 
@@ -269,6 +276,22 @@ class ModelConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+
+
+# ---------------------------------------------------------------------------
+# Parallelism (the reference's fields that one card honours, with its
+# defaults; see the module docstring)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    remat: str = "none"              # none | full | dots (checkpointing)
+    grad_accum: int = 1              # microbatch count in train_step
+    compress_grads: bool = False     # int8 all-reduce on the pod axis
+    use_kernels: bool = False        # hand kernels (serving only: no backward)
+    opt_state_dtype: str = "float32"  # bfloat16 halves Adam moment memory
+    block_kv: int = 0                # blocked online-softmax chunk (0 = dense)
+    mxu_bf16: bool = False           # bf16 attention operands, f32 products
 
 
 # ---------------------------------------------------------------------------

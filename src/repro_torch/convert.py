@@ -27,7 +27,9 @@ encoder-decoder's encoder segments unstack the same way with
 ``encoder_plan`` (its ``final_norm`` beside them); its decoder layers'
 ``ln_cross``/``cross`` weights and ``cross_k``/``cross_v`` cache leaves, and
 a VLM's ``patch_proj``, are carried across as they are.  Weights keep their
-``(d_in, d_out)`` layout: no transpose.
+``(d_in, d_out)`` layout: no transpose.  bf16 leaves (numpy's extension
+type) are carried across by their bits.  :func:`opt_state_from_jax`
+carries an AdamW state: moments and gradients map as the weights do.
 """
 from __future__ import annotations
 
@@ -46,7 +48,12 @@ def _tensors(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _tensors(v, device) for k, v in tree.items()}
     # np.array copies: the port's weights never alias the caller's arrays
-    return torch.as_tensor(np.array(tree), device=device)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bf16 is an extension type torch cannot read: its bits
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 def detector_from_jax(np_tree: dict, device=None) -> dict:
@@ -111,3 +118,15 @@ def caches_from_jax(np_caches: list, cfg: ModelConfig, device=None) -> list:
     rings or paged pools) -> the port's list of per-layer cache dicts."""
     dev = resolve_device(device)
     return [_tensors(t, dev) for t in _unstack(np_caches, cfg)]
+
+
+def opt_state_from_jax(np_state: dict, cfg: ModelConfig, device=None) -> dict:
+    """A reference AdamW state (``{"mu", "nu"}`` trees like its parameters,
+    ``step``; numpy leaves) -> the port's, in the port's layout: the map
+    of :func:`transformer_from_jax` is leaf-wise, so it carries the
+    moments (and gradients) as it carries the weights."""
+    dev = resolve_device(device)
+    return {"mu": transformer_from_jax(np_state["mu"], cfg, dev),
+            "nu": transformer_from_jax(np_state["nu"], cfg, dev),
+            "step": torch.as_tensor(np.array(np_state["step"]),
+                                    dtype=torch.int32, device=dev)}

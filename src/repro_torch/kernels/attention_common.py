@@ -73,6 +73,21 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need ``name``'s backward: grad mode is on
+    and a floating input requires grad.  The hand kernels return tensors
+    without a ``grad_fn`` (the reference's Pallas kernels have no VJP
+    either, and ``jax.grad`` through them fails), so a silent launch would
+    drop the gradient of everything feeding them.  Called before the
+    device dispatch, so the plain CPU path refuses too."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if t.is_floating_point()):
+        raise RuntimeError(
+            f"{name}: the hand kernel has no backward (neither has the "
+            f"reference's Pallas kernel); train with use_kernels=False, or "
+            f"call it under torch.no_grad()")
+
+
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True: launch the kernel.  False: every tensor is on the CPU, use the
     plain version.  Anything else (mixed devices, another backend, a

@@ -7,7 +7,11 @@ The reference's wrappers pad to 128 lanes and transpose to the kernels'
 layouts; the port's kernels read the model's layouts in place, so these
 wrappers only route, and the two recurrent entry points are the kernel
 modules' own functions.  Each callee launches its hand kernel for CUDA
-tensors and runs its plain version for CPU tensors.
+tensors and runs its plain version for CPU tensors.  None has a backward:
+each raises, on either device, when grad mode is on and a floating input
+requires grad (``attention_common.refuse_grad``), so training runs with
+``use_kernels=False``, the reference's own training path, and serving
+runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 

@@ -24,7 +24,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.attention_common import on_cuda, stream
+from repro_torch.kernels.attention_common import (on_cuda, refuse_grad,
+                                                  stream)
 
 #: launches of the hand kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
@@ -75,6 +76,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     B, S, W = a.shape
     if h0 is not None and tuple(h0.shape) != (B, W):
         raise ValueError(f"h0 {tuple(h0.shape)} must be (B,W) = {(B, W)}")
+    refuse_grad("rglru_scan", a, b, *(() if h0 is None else (h0,)))
     if not on_cuda(a, b, *(() if h0 is None else (h0,))):
         return rglru_scan_plain(a, b, h0)
     for t in (a, b) + (() if h0 is None else (h0,)):

@@ -30,10 +30,14 @@ encoder's K/V, every position 0, not causal, no window, through
 ``dot_attention``, so ``use_kernels`` runs the flash kernel in its
 non-causal form (at S = 1 too: the decode kernel takes causal rows only).
 
-Only the options the token path reads are ported: ``RunOpts.use_kernels``.
-The reference's ``interpret``, ``remat``, ``block_kv``, ``unroll_scan``,
-``attn_specs`` and ``mxu_bf16`` (with ``blocked_dot_attention``) wait for
-the slices that need them.
+``RunOpts`` carries the reference's options that one card reads:
+``use_kernels``, ``remat`` (read by ``transformer.apply_stack``),
+``block_kv`` (the online-softmax :func:`blocked_dot_attention`) and
+``mxu_bf16`` (bf16 operands with fp32 products for the two attention
+products).  The reference's ``unroll_scan`` and ``interpret`` have no
+counterpart (the blocked attention is a Python loop, and the kernels have
+no interpret mode), and ``attn_specs`` is a sharding hint for the
+multi-device layer.
 """
 from __future__ import annotations
 
@@ -55,6 +59,13 @@ NEG_INF = -1e30
 class RunOpts:
     """Runtime options threaded through model apply functions."""
     use_kernels: bool = False     # hand-written CUDA kernels (plain on CPU)
+    remat: str = "none"           # none | full | dots (activation checkpointing)
+    # blocked online-softmax attention over KV chunks of this many keys:
+    # never materialises the S x C score matrix.  0 = dense path.
+    block_kv: int = 0
+    # the two attention products on operands rounded to K's/V's dtype,
+    # products and sums in fp32 (softmax stays fp32); see dot_attention
+    mxu_bf16: bool = False
 
 
 DEFAULT_OPTS = RunOpts()
@@ -221,15 +232,33 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The plain path is the reference's ``dot_attention``: a row with no
     valid key softmaxes its NEG_INF scores to UNIFORM weights.  The
     kernels (``use_kernels``) give 0 for such a row, as the reference's
-    kernels do; only rows of retired slots are ever fully masked."""
+    kernels do; only rows of retired slots are ever fully masked.
+
+    ``opts.mxu_bf16`` rounds the query to K's dtype and the weights to V's
+    (bf16 in a bf16 model) and takes both products in fp32 on those
+    rounded operands: a product of two bf16 values is exact in fp32, so
+    this is the reference's bf16 x bf16 product with
+    ``preferred_element_type=float32`` (fp32 scores, fp32 sums) up to the
+    order of the sums.  A bf16 ``einsum`` would round the scores to bf16
+    before the softmax.  Unlike the reference, the port materialises the
+    fp32 copies: torch's bf16 product with an fp32 result exists on CUDA
+    only."""
     if opts.use_kernels:
         return kops.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
                                     window=window)
+    if opts.block_kv and k.shape[1] % opts.block_kv == 0 \
+            and k.shape[1] > opts.block_kv:
+        return blocked_dot_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                     window=window, block=opts.block_kv)
     B, S, Hq, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, S, Hkv, G, D)
-    scores = torch.einsum("bskgd,bckd->bskgc", qg.float(), k.float())
+    if opts.mxu_bf16:
+        scores = torch.einsum("bskgd,bckd->bskgc", qg.to(k.dtype).float(),
+                              k.float())
+    else:
+        scores = torch.einsum("bskgd,bckd->bskgc", qg.float(), k.float())
     scores = scores / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
     kv_pos, q_pos = kv_pos.long(), q_pos.long()
     valid = (kv_pos[:, None, :] >= 0).expand(B, S, C)
@@ -240,7 +269,54 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = valid[:, :, None, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bskgc,bckd->bskgd", w, v.float())
+    if opts.mxu_bf16:
+        out = torch.einsum("bskgc,bckd->bskgd", w.to(v.dtype).float(),
+                           v.float())
+    else:
+        out = torch.einsum("bskgc,bckd->bskgd", w, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def blocked_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                          causal: bool, window: int = 0,
+                          block: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``block`` keys (C a
+    multiple of it): the reference's ``blocked_dot_attention``, its
+    ``lax.scan`` a Python loop carrying the running (m, l, acc), so only
+    (B,S,Hkv,G,block) score panels exist.  Differentiable by autograd.  A
+    row with no valid key gives 0 (l stays 0), where the dense path gives
+    uniform weights."""
+    B, S, Hq, D = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, D).float()
+    scale = 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
+    q_pos = q_pos.long()
+    m = torch.full((B, S, Hkv, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, S, Hkv, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, Hkv, G, D), dtype=torch.float32, device=q.device)
+    for c0 in range(0, C, block):
+        kb, vb = k[:, c0:c0 + block], v[:, c0:c0 + block]
+        pb = kv_pos[:, c0:c0 + block].long()
+        s = torch.einsum("bskgd,bckd->bskgc", qg, kb.float()) * scale
+        valid = (pb[:, None, :] >= 0).expand(B, S, pb.shape[1])
+        if causal:
+            valid = valid & (pb[:, None, :] <= q_pos[:, :, None])
+        if window:
+            valid = valid & ((q_pos[:, :, None] - pb[:, None, :]) < window)
+        valid = valid[:, :, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bskgc,bckd->bskgd", p, vb.float())
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
     return out.reshape(B, S, Hq, D).to(q.dtype)
 
 

@@ -86,6 +86,24 @@ def init_tree(ptree: Any, generator: torch.Generator,
                                           device))
 
 
+def tree_map(fn, *trees: Any) -> Any:
+    """``fn`` over the leaves of trees of one structure, in dict order.
+    Dicts and lists are nodes; anything else (a tuple too) is a leaf."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves in :func:`tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def tree_to(tree: Any, device: torch.device) -> Any:
     """The same tree with every tensor leaf on ``device``."""
     return _map_with_path(tree, lambda t, path: t.to(device))

@@ -34,16 +34,26 @@ dtype: zeros until a ``prefill`` with frames fills them, and a cache that
 holds them wins over frames passed later, as in the reference.
 
 ``forward`` returns the reference's MoE aux loss (the sum over MoE
-layers; serving ignores it).  ``extras`` carries the stub frontends'
-inputs: ``{"frames": (B, T, d_model)}`` (encoder-decoder: ``forward`` runs
-the encoder only when they are given) and ``{"patches": (B, num_patches,
-d_model)}`` (VLM).
+layers; serving ignores it, :func:`lm_loss` adds it to the cross-entropy).
+``opts.remat`` checkpoints every layer of :func:`apply_stack` (decoder and
+encoder): ``"full"`` saves the layer's input only, ``"dots"`` also the
+outputs of its matrix products without a batch dimension (the reference's
+``checkpoint_dots_with_no_batch_dims``: ``aten.mm``/``aten.addmm``, the
+projections; the attention and expert ``bmm`` are recomputed).  The
+reference checkpoints a scanned period (one layer, or a hybrid pattern's
+period) at a time; the gradients are the same.  ``extras`` carries the
+stub frontends' inputs: ``{"frames": (B, T, d_model)}`` (encoder-decoder:
+``forward`` runs the encoder only when they are given) and ``{"patches":
+(B, num_patches, d_model)}`` (VLM).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ATTN, MLSTM, RGLRU, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
@@ -356,17 +366,41 @@ def apply_stack(cfg: ModelConfig, layers: list, sigs: list,
     new_caches: Optional[list] = [] if want_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, ((kind, moe_flag), p) in enumerate(zip(sigs, layers)):
-        x, nc, a = _apply_block(
-            cfg, kind, moe_flag, p, x, positions=positions,
+        block = partial(
+            _apply_block, cfg, kind, moe_flag, p, positions=positions,
             cache=caches[i] if caches is not None else None,
             cache_index=cache_index, causal=causal, fill_cache=fill_cache,
             cache_capacity=cache_capacity, enc_out=enc_out, pages=pages,
             opts=opts)
+        x, nc, a = (block(x) if opts.remat == "none"
+                    else _remat(block, opts.remat)(x))
         if a is not None:
             aux = aux + a
         if want_cache:
             new_caches.append(nc)
     return x, new_caches, aux
+
+
+#: the matrix products "dots" saves: those without a batch dimension
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under activation checkpointing: ``"full"`` recomputes the
+    whole layer in the backward pass, ``"dots"`` keeps its projections'
+    outputs.  Any other policy raises, as the reference's ``_remat``."""
+    if policy == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _save_dots))
+    raise ValueError(policy)
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
@@ -451,6 +485,26 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         x = x[:, -1:]
     logits = unembed(cfg, params["embed"], x)
     return logits, new_caches, aux
+
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
+            opts: RunOpts = DEFAULT_OPTS):
+    """Cross-entropy LM loss.  batch: ``tokens``/``labels`` (B, S) int,
+    ``mask`` (B, S) optional, ``frames``/``patches`` where the family
+    takes them.  Returns ``(loss + aux, {"nll": loss, "aux": aux})``: an
+    fp32 log-sum-exp minus the gold logit, averaged under the mask over
+    ``max(sum(mask), 1)``, plus the MoE load-balance loss."""
+    extras = {k: batch[k] for k in ("frames", "patches") if k in batch}
+    logits, _, aux = forward(cfg, params, batch["tokens"], extras=extras,
+                             opts=opts)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

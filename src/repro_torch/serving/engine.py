@@ -172,7 +172,9 @@ class ServeEngine(EngineCore):
 
     ``params`` are the port's tensors (``transformer.init_params`` or
     ``convert.transformer_from_jax``) on ``device`` — the card unless
-    ``device="cpu"``.
+    ``device="cpu"``.  Prefill and decode run under ``torch.no_grad()``, so
+    parameters that require grad (a model in training) serve as they are:
+    the kernels refuse inputs that would need a backward.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -295,6 +297,7 @@ class ServeEngine(EngineCore):
         return self.budget(req.deadline_ms, req.max_new_tokens,
                            self.token_cost_ms.get(50.0))
 
+    @torch.no_grad()
     def _prefill_loop(self, slot: int, req: Request) -> int:
         """Chunked prefill in DESCENDING POWER-OF-TWO chunks capped at
         ``prefill_chunk`` and at the ring (e.g. 23 -> 8+8+4+2+1): never any
@@ -452,6 +455,7 @@ class ServeEngine(EngineCore):
         self.submit(req)
         req.arrival_s = self.clock.now_s() - age_s
 
+    @torch.no_grad()
     def step(self) -> int:
         """One engine tick: admit into free slots, then decode one token
         for every active slot.  Returns tokens generated."""

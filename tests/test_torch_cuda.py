@@ -24,7 +24,7 @@ from repro_torch.kernels import rglru as rglru_k
 from repro_torch.kernels import vision_ops as tvo
 from repro_torch.models import transformer as TT
 from repro_torch.models.attention import RunOpts
-from repro_torch.models.param import tree_to
+from repro_torch.models.param import tree_leaves, tree_to
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.streams import INNER, OUTER, VisionServeEngine
 
@@ -1322,3 +1322,88 @@ def test_encdec_and_vlm_on_card_match_cpu(dev, arch):
             assert not launches["cpu"]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _train_batch(cfg, B, S, seed=0):
+    from repro_torch.data import lm_batches
+    return {k: torch.as_tensor(v) for k, v in
+            next(lm_batches(B, S, cfg.vocab_size, seed=seed, steps=1)).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "granite-moe-1b-a400m"])
+def test_train_step_on_card_matches_cpu(dev, no_tf32, arch):
+    """One train step (grad_accum 2, remat full, fp32) on the card and on
+    the CPU from one host draw: loss rtol 1e-5, grad norm rtol 1e-4, the
+    updated parameters within 0.05 lr; no hand kernel launched."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    cfg = get_arch(arch).reduced()
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = _train_batch(cfg, 4, 16)
+    lr = 1e-3
+    step = make_train_step(cfg, ParallelConfig(grad_accum=2, remat="full"),
+                           AdamWConfig(lr=lr, warmup_steps=1))
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = tree_to(params, torch.device(device))
+        kops.reset_launches()
+        p, _, m = step(p, init_opt_state(p),
+                       {k: v.to(device) for k, v in batch.items()})
+        assert not any(kops.launches().values())
+        out[device] = (p, {k: float(v) for k, v in m.items()})
+    (pc, mc), (ph, mh) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(mc["loss"], mh["loss"], rtol=1e-5)
+    np.testing.assert_allclose(mc["grad_norm"], mh["grad_norm"], rtol=1e-4)
+    for a, b in zip(tree_leaves(pc), tree_leaves(ph)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0.05 * lr)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_grad_on_card(dev):
+    """Given CUDA inputs that require grad under grad mode, each token
+    kernel's entry point raises; under ``no_grad`` it launches and equals
+    its plain version."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S, Hq, Hkv, D = 1, 8, 4, 2, 64
+    q = torch.randn(B, S, Hq, D, device=dev, generator=g)
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=g)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].contiguous()
+    kp = k.reshape(S // 4, 4, Hkv, D).contiguous()
+    ppos = pos.reshape(S // 4, 4).contiguous()
+    tbl = torch.arange(S // 4, dtype=torch.int32, device=dev)[None]
+    a = torch.rand(B, S, 32, device=dev, generator=g)
+    qm = torch.randn(B, S, 2, 16, device=dev, generator=g)
+    gate = torch.randn(B, S, 2, device=dev, generator=g)
+    q1, pos1 = q[:, -1:].contiguous(), pos[:, -1:].contiguous()
+    calls = {
+        "flash": (lambda q: fa_k.flash_attention(q, k, k, pos, pos), q),
+        "decode": (lambda q: dec_k.decode_attention(q, k, k, pos1, pos), q1),
+        "paged_flash": (lambda q: pa_k.paged_flash_attention(
+            q, kp, kp, ppos, tbl, pos), q),
+        "paged_decode": (lambda q: pa_k.paged_decode_attention(
+            q, kp, kp, ppos, tbl, pos1), q1),
+        "rglru_scan": (lambda x: rglru_k.rglru_scan(x, a), a),
+        "mlstm_chunkwise": (lambda x: mlstm_k.mlstm_chunkwise(
+            x, qm, qm, gate, gate), qm),
+    }
+    plain = {"flash": lambda q: fa_k.flash_attention_plain(q, k, k, pos, pos),
+             "decode": lambda q: dec_k.decode_attention_plain(
+                 q, k, k, pos1, pos),
+             "paged_flash": lambda q: pa_k.paged_flash_attention_plain(
+                 q, kp, kp, ppos, tbl, pos),
+             "paged_decode": lambda q: pa_k.paged_decode_attention_plain(
+                 q, kp, kp, ppos, tbl, pos1),
+             "rglru_scan": lambda x: rglru_k.rglru_scan_plain(x, a),
+             "mlstm_chunkwise": lambda x: mlstm_k.mlstm_chunkwise_plain(
+                 x, qm, qm, gate, gate)}
+    for name, (fn, x) in calls.items():
+        kops.reset_launches()
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(x.clone().requires_grad_())
+        assert kops.launches()[name] == 0, name
+        with torch.no_grad():
+            got = fn(x.clone().requires_grad_())
+        assert kops.launches()[name] == 1, name
+        tol = MLSTM_TOL if name == "mlstm_chunkwise" else TIGHT
+        torch.testing.assert_close(got, plain[name](x), **tol)
