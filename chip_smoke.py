@@ -261,6 +261,29 @@ wall seconds):
                ``torch.no_grad()`` it launches once and equals its plain
                version.  Repeats of (b) are not claimed bitwise: the
                embedding's backward accumulates with atomics.
+  19. multi-device layer on one card (one NCCL rank: NCCL cannot put
+               two ranks on one card).  (a) starcoder2-3b at full width and
+               depth, B 8 x S 512, grad_accum 2, remat none: ``make_train_
+               step`` on plain tensors, then with parameters, moments and
+               batches DTensors on a (1, 1) ``("data", "model")``
+               ``DeviceMesh``, 4 steps each from one seed: the first
+               step's loss within 1e-5 relative and grad norm within 1e-4
+               of the plain step's, ms/step (median of steps 2-4) and peak
+               memory of each, no hand kernel launched; (b) ``HW_H100``
+               against ``torch.cuda.get_device_properties``: the name, the
+               capacity within 5 % (the datasheet's "80 GB" counts GiB)
+               and 132 SMs; (c) ``roofline.estimate_memory_per_device``
+               against phase 18 (b)'s and (a)'s measured peaks, the ratio
+               printed (not held); (d) the dry-run's starcoder2-3b
+               ``train_4k`` on the 256-rank ``single`` mesh and
+               deepseek-v2-236b ``decode_32k`` on the 512-rank ``multi``
+               mesh at full width, in a fake world in a subprocess started
+               before (a), both ``ok``: per-device FLOPs, bytes and
+               collective bytes, the dominant term, wall seconds; (e)
+               ``int8_psum`` and a two-microbatch pipeline on the world of
+               one, a one-replica fleet with ``fleet_mode="shard_map"``
+               equal to ``vmap`` and serial (digests), and a two-replica
+               replica mesh refused, naming the card count.
 
 TF32 is turned off for cuDNN and matmuls here (the library modules set no
 global flags): the flags and the sampled tokens are threshold and argmax
@@ -451,6 +474,15 @@ TRAIN_FULL = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq",
 TRAIN_ELASTIC = ["--arch", "starcoder2-3b", "--reduced", "--steps", "60",
                  "--batch", "8", "--seq", "32", "--ckpt-every", "10",
                  "--kill-at-step", "25"]
+
+# phase 19: the multi-device layer on one card.  (a) the DTensor train step
+# on a one-rank NCCL (1, 1) mesh vs the plain step, phase 18 (b)'s cell at
+# remat none, MD_STEPS steps each; (d) two dry-run cells at full width in a
+# fake world, run in a subprocess beside (a)-(c)
+MD_STEPS = 4
+MD_DRYRUN = (("starcoder2-3b", "train_4k", "single"),
+             ("deepseek-v2-236b", "decode_32k", "multi"))
+MD_DRYRUN_TIMEOUT_S = 240
 
 
 def fail(msg: str) -> None:
@@ -3010,6 +3042,258 @@ def grad_guard_on_card(torch, dev):
     kops.reset_launches()
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the multi-device layer on one card
+# ---------------------------------------------------------------------------
+
+
+def md_dryrun_start(root, out):
+    """Phase 19 (d)'s subprocess: the two full-width cells, one after the
+    other, in a fake world (CPU only; it runs beside (a)-(c))."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    code = ("import sys; from repro_torch.launch.dryrun import run_cell\n"
+            f"for a, s, m in {MD_DRYRUN!r}:\n"
+            f"    run_cell(a, s, m, {{}}, {out!r})\n")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def md_dryrun_finish(proc, out, card):
+    """Phase 19 (d): both cells ``ok``; their per-device counts."""
+    try:
+        so, se = proc.communicate(timeout=MD_DRYRUN_TIMEOUT_S)
+    except Exception:
+        proc.kill()
+        proc.wait()
+        fail(f"dry-run: not done in {MD_DRYRUN_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"dry-run subprocess exited {proc.returncode}: {se[-2000:]}")
+    for arch, shape, mesh in MD_DRYRUN:
+        with open(os.path.join(out, f"{mesh}__{arch}__{shape}.json")) as f:
+            r = json.load(f)
+        if not r["ok"] or r["skip"]:
+            fail(f"dry-run {mesh} {arch} {shape}: {r['error'] or r['skip']}")
+        rf = r["roofline"]
+        print(f"dry-run {arch} {shape} on {mesh} ({r['chips']} fake ranks, "
+              f"mesh {r['mesh_shape']}): per device {r['cost']['flops']:.4g}"
+              f" FLOPs, {r['cost']['bytes_accessed']:.4g} bytes accessed, "
+              f"{r['collective_bytes']:.4g} collective bytes (wire-weighted;"
+              f" {', '.join(f'{k} {v:.4g}' for k, v in r['collectives'].items() if v)});"
+              f" terms at {rf['hw']}: compute {rf['compute_s']:.4g} s, "
+              f"memory {rf['memory_s']:.4g} s, collective "
+              f"{rf['collective_s']:.4g} s, dominant {rf['dominant']}, "
+              f"useful/counted {rf['useful_ratio']:.4g}, roofline fraction "
+              f"{rf['roofline_fraction']:.4g}; analytic memory "
+              f"{r['memory_analytic']['total'] / 1e9:.2f} GB a device; "
+              f"{r['wall_s']:.1f} s wall (the host's CPU, {card})",
+              flush=True)
+
+
+def md_world(torch, path):
+    """A one-rank NCCL process group (a file rendezvous: no port)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1)
+
+
+def md_steps(torch, step_fn, params, state, batches, dev):
+    """``MD_STEPS`` steps; (first loss, first grad norm, ms of each)."""
+    ms, first = [], None
+    for b in batches:
+        b = {k: v if isinstance(v, torch.Tensor) else
+             torch.as_tensor(v).to(dev) for k, v in b.items()}
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, b)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        first = first or (loss, gnorm)
+    return first, ms
+
+
+def md_dtensor_step(torch, dev, card):
+    """Phase 19 (a): the DTensor train step on a (1, 1) mesh vs the plain
+    step, one seed and one batch stream."""
+    from repro_torch.config import ParallelConfig, ShapeConfig, get_arch
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as TT
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.compat import make_device_mesh
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    cfg = get_arch(TRAIN_ARCH)
+    par = ParallelConfig(grad_accum=TRAIN_ACCUM, remat="none")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=min(20, MD_STEPS // 5),
+                      total_steps=MD_STEPS)
+    out = {}
+    kops.reset_launches()
+    for side in ("plain", "dtensor"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        mesh = None
+        if side == "dtensor":
+            mesh = make_device_mesh((1, 1), ("data", "model"))
+            params = rules.distribute(params, mesh,
+                                      rules.param_pspecs(cfg, par, mesh))
+        state = init_opt_state(params)
+        step = make_train_step(cfg, par, opt, mesh=mesh)
+        batches = lm_batches(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0,
+                             steps=MD_STEPS)
+        if mesh is not None:
+            bspecs = rules.batch_pspecs(
+                cfg, ShapeConfig("cell", TRAIN_S, TRAIN_B, "train"), par,
+                mesh)
+            batches = (rules.distribute(
+                {k: torch.as_tensor(v).to(dev) for k, v in b.items()}, mesh,
+                bspecs) for b in batches)
+        first, ms = md_steps(torch, step, params, state, batches, dev)
+        out[side] = {"loss": first[0], "grad_norm": first[1],
+                     "ms": statistics.median(ms[1:]), "first_ms": ms[0],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        kind = (type(params["embed"]["tokens"]).__name__)
+        print(f"multi-device (a) {side} ({kind} leaves): {TRAIN_ARCH} full "
+              f"width and depth, B {TRAIN_B} x S {TRAIN_S}, grad_accum "
+              f"{TRAIN_ACCUM}, remat none: first step loss {first[0]:.7f}, "
+              f"grad norm {first[1]:.7g}; {out[side]['ms']:.1f} ms/step "
+              f"(median of steps 2-{MD_STEPS}; step 1 {ms[0]:.0f} ms), peak "
+              f"{out[side]['peak_gb']:.2f} GB allocated; {card}", flush=True)
+        del params, state, step
+    launched = {k: n for k, n in kops.launches().items() if n}
+    if launched:
+        fail(f"multi-device (a): the training path launched {launched}")
+    p, d = out["plain"], out["dtensor"]
+    rel_loss = abs(d["loss"] - p["loss"]) / abs(p["loss"])
+    rel_gn = abs(d["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
+    print(f"multi-device (a): DTensor vs plain first step: loss rel "
+          f"{rel_loss:.3g} (tol 1e-5), grad norm rel {rel_gn:.3g} (tol "
+          f"1e-4); {d['ms']:.1f} vs {p['ms']:.1f} ms/step ({d['ms'] / p['ms']:.3f}x),"
+          f" peak {d['peak_gb']:.2f} vs {p['peak_gb']:.2f} GB", flush=True)
+    if not rel_loss <= 1e-5 or not rel_gn <= 1e-4:
+        fail(f"multi-device (a): DTensor step {d} vs plain {p}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def md_hardware(torch, card):
+    """Phase 19 (b): ``HW_H100`` against the card."""
+    from repro_torch.roofline.analysis import H100_SMS, HW_H100
+    prop = torch.cuda.get_device_properties(0)
+    gib = prop.total_memory / 2 ** 30
+    spec_gb = HW_H100.hbm_bytes / 1e9
+    print(f"multi-device (b): HW_H100 {HW_H100.name!r} (peak "
+          f"{HW_H100.peak_flops:.4g} FLOP/s bf16, HBM {HW_H100.hbm_bw:.4g} "
+          f"B/s, link {HW_H100.link_bw:.4g} B/s, {HW_H100.hbm_bytes:.4g} B, "
+          f"{H100_SMS} SMs) vs the card {prop.name!r}: {prop.total_memory} "
+          f"B = {gib:.2f} GiB, {prop.multi_processor_count} SMs; power "
+          f"limit: {card}", flush=True)
+    if "H100" not in prop.name or HW_H100.name != prop.name:
+        fail(f"multi-device (b): the card is {prop.name!r}, HW_H100 "
+             f"names {HW_H100.name!r}")
+    # the datasheet's "80 GB" counts 2^30-byte units: the card reports
+    # its capacity in bytes, 80e9 x 1.07
+    if abs(gib - spec_gb) > 0.05 * spec_gb:
+        fail(f"multi-device (b): {gib:.2f} GiB on the card vs "
+             f"{spec_gb:.0f} GB in HW_H100")
+    if prop.total_memory < HW_H100.hbm_bytes:
+        fail("multi-device (b): the card holds less than HW_H100.hbm_bytes")
+    if prop.multi_processor_count != H100_SMS:
+        fail(f"multi-device (b): {prop.multi_processor_count} SMs, "
+             f"HW_H100 counts {H100_SMS}")
+
+
+def md_memory_model(a, train18):
+    """Phase 19 (c): the memory model against the measured peaks (reported,
+    not held)."""
+    from repro_torch.config import ShapeConfig, get_arch
+    from repro_torch.roofline.analysis import estimate_memory_per_device
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("cell", TRAIN_S, TRAIN_B, "train")
+    cases = [("full", train18["peak_gb"], "phase 18 (b)")]
+    if train18.get("none"):
+        cases.append(("none", train18["none"]["peak_gb"], "phase 18 (b)"))
+    cases.append(("none", a["dtensor"]["peak_gb"], "(a) DTensor"))
+    for remat, peak, where in cases:
+        est = estimate_memory_per_device(cfg, shape, tp=1, dp=1, fsdp=False,
+                                         grad_accum=TRAIN_ACCUM, remat=remat)
+        print(f"multi-device (c): remat {remat}: the memory model "
+              f"{est['total'] / 1e9:.2f} GB (params "
+              f"{est['params'] / 1e9:.2f}, fp32 grads and moments "
+              f"{est['opt'] / 1e9:.2f}, activations "
+              f"{est['activations'] / 1e9:.2f}) vs {peak:.2f} GB measured "
+              f"by {where}: ratio {est['total'] / 1e9 / peak:.3f}",
+              flush=True)
+
+
+def md_degenerate(torch, dev):
+    """Phase 19 (e): int8_psum and a two-tick pipeline on the NCCL world of
+    one; a one-replica fleet through ``fleet_mode="shard_map"`` against
+    vmap and serial; a two-replica mesh on one card refused."""
+    from repro_torch.sharding.collectives import int8_psum
+    from repro_torch.sharding.compat import make_device_mesh
+    from repro_torch.sharding.pipeline import make_pipeline, stage_split
+    from repro_torch.simulate import ReplicaSpec, get_scenario, run_scenario
+    from repro_torch.streams import FleetStep, VisionServeEngine
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(4096, device=dev, generator=g)
+    got = int8_psum(x)
+    s = x.abs().max().clamp(min=1e-8) / 127.0
+    want = torch.clamp(torch.round(x / s), -127, 127) * s
+    err = float((got - want).abs().max())
+    bound = float(x.abs().max()) / 127
+    print(f"multi-device (e): int8_psum over NCCL's world of 1: "
+          f"max |got - quantised x| {err:.3g}, max |got - x| "
+          f"{float((got - x).abs().max()):.3g} (bound {bound:.3g})",
+          flush=True)
+    if err > 1e-6 * bound or float((got - x).abs().max()) > bound:
+        fail("multi-device (e): int8_psum on one rank")
+    mesh = make_device_mesh((1,), ("stage",))
+    ws = torch.randn(4, 64, 64, device=dev, generator=g) * 0.1
+    xs = torch.randn(2, 8, 64, device=dev, generator=g)
+
+    def stage_fn(w, h):
+        for wi in w:
+            h = torch.tanh(h @ wi)
+        return h
+    got = make_pipeline(stage_fn, mesh, "stage")(stage_split(ws, 1), xs)
+    want = torch.stack([stage_fn(ws, xs[m]) for m in range(2)])
+    perr = float((got - want).abs().max())
+    print(f"multi-device (e): GPipe, one stage, two microbatches (two "
+          f"ticks) vs the stack: max |diff| {perr:.3g}", flush=True)
+    if perr > 1e-6:
+        fail(f"multi-device (e): pipeline differs by {perr}")
+    s = get_scenario("golden_churn", ticks=60,
+                     replicas=(ReplicaSpec("r0", slots=4),))
+    runs = {"serial": run_scenario(s, device=dev),
+            "vmap": run_scenario(s, device=dev, parallel=True,
+                                 fleet_mode="vmap"),
+            "shard_map": run_scenario(s, device=dev, parallel=True,
+                                      fleet_mode="shard_map")}
+    digests = {k: r.digest for k, r in runs.items()}
+    print(f"multi-device (e): one-replica fleet on the card: digests "
+          f"{ {k: v[:8] for k, v in digests.items()} }, violations "
+          f"{sum(len(r.violations) for r in runs.values())}", flush=True)
+    if len(set(digests.values())) != 1 or any(r.violations
+                                              for r in runs.values()):
+        fail(f"multi-device (e): fleet digests {digests}")
+    engines = [VisionServeEngine(f"m{i}", slots=4, frame_res=32,
+                                 input_res=16, device=dev,
+                                 generator=torch.Generator().manual_seed(i))
+               for i in range(2)]
+    try:
+        FleetStep(engines, mode="shard_map")
+    except ValueError as e:
+        print(f"multi-device (e): two replicas on {torch.cuda.device_count()}"
+              f" card(s): {e}", flush=True)
+        if f"only {torch.cuda.device_count()} available" not in str(e):
+            fail(f"multi-device (e): the refusal does not name the card "
+                 f"count: {e}")
+    else:
+        fail("multi-device (e): a two-replica mesh ran on one card")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3278,13 +3562,39 @@ def main() -> int:
     # ---- phase 18: training on the card ------------------------------------
     train_card_vs_cpu(torch, dev)
     phase_done("18 (a)", "training card vs CPU")
-    train_full_width(torch, dev, card)
+    train18 = train_full_width(torch, dev, card)
     phase_done("18 (b)", f"{TRAIN_ARCH} training at full width and depth")
     train_entry_points(torch, os.path.dirname(src))
     phase_done("18 (c)", "train launcher under the elastic supervisor; "
                "the tiny-LM example")
     grad_guard_on_card(torch, dev)
     phase_done("18 (d)", "the kernels refuse inputs that require grad")
+
+    # ---- phase 19: the multi-device layer on one card ----------------------
+    import tempfile
+    import torch.distributed as dist
+    md_tmp = tempfile.mkdtemp(prefix="chip-smoke-md-")
+    dry = md_dryrun_start(os.path.dirname(src), md_tmp)
+    try:
+        md_world(torch, os.path.join(md_tmp, "store"))
+        md_a = md_dtensor_step(torch, dev, card)
+        phase_done("19 (a)", "the DTensor train step on a (1, 1) NCCL mesh")
+        md_hardware(torch, card)
+        md_memory_model(md_a, train18)
+        phase_done("19 (b)-(c)", "HW_H100 and the memory model vs the card")
+        md_degenerate(torch, dev)
+        phase_done("19 (e)", "int8_psum, the pipeline and the replica mesh "
+                   "on one card")
+        md_dryrun_finish(dry, md_tmp, card)
+        phase_done("19 (d)", "the dry-run's two full-width cells (waited)")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(md_tmp, ignore_errors=True)
     print(f"total {time.perf_counter() - t_run:.1f} s wall", flush=True)
 
     print(card, flush=True)

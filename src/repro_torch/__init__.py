@@ -4,9 +4,10 @@ Mirrors ``src/repro/`` module for module; the JAX package stays the
 reference it is held against.  This package imports torch, numpy and the
 standard library only — never JAX and never the reference package.
 
-Ported so far — the vision main path (push -> ledger record), the token
-path (request -> chunked prefill -> decode -> ledger record), the fleet
-simulator that drives both on virtual clocks, and training on one card:
+Everything the reference does: the vision main path (push -> ledger
+record), the token path (request -> chunked prefill -> decode -> ledger
+record), the fleet simulator that drives both on virtual clocks,
+training, and the multi-device and roofline layer:
 
   config / configs              EDAConfig, VisionConfig, ModelConfig and
                                 the arch registry (starcoder2-3b,
@@ -34,8 +35,17 @@ simulator that drives both on virtual clocks, and training on one card:
   train                         AdamW, the train step (lm_loss under
                                 autograd, grad accumulation, remat),
                                 checkpoints in the reference's format
-  launch.train, launch.elastic  the one-card train launcher and its
-                                restart-from-checkpoint supervisor
+  launch.train, launch.elastic  the train launcher (one card, or the
+                                ranks of a process group over a mesh)
+                                and its restart-from-checkpoint supervisor
+  sharding                      partition rules as DTensor placements,
+                                the int8 cross-pod all-reduce, GPipe, the
+                                SPMD and replica mesh constructors
+  roofline                      H100 roofline terms from counted per-
+                                device FLOPs, bytes and collective bytes;
+                                the analytic memory model
+  launch.mesh, launch.dryrun    production meshes; one step of every
+                                (arch x shape x mesh) cell in a fake world
   core.runtime / core.pipeline  the paper's EDA master runtime
                                 (EDARuntime, SimExecutor, PAPER_DEVICES)
                                 and the double-buffered ingest

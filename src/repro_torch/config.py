@@ -4,15 +4,16 @@
 engines.  ``ModelConfig`` (with ``MoEConfig`` and ``MLAConfig``) describes
 a language model the token engine serves; architectures register
 themselves in ``repro_torch.configs`` and are looked up with
-:func:`get_arch`.  ``ParallelConfig`` carries the training options
-the reference's of that name has and one card honours
-(``train.train_step`` reads ``grad_accum``, ``remat``, ``use_kernels``,
-``block_kv``, ``mxu_bf16`` and ``compress_grads``; ``launch.train`` takes
-any of them through ``--set`` and reads ``opt_state_dtype`` for the Adam
-moments, which the reference's launcher leaves at fp32 whatever it
-says).  The reference's mesh fields (sharding axes, FSDP, expert and
-sequence parallelism, layer scan, donation) come with the multi-device
-layer; ``launch.presets.apply_overrides`` refuses them by name.
+:func:`get_arch`.  ``ParallelConfig`` is the reference's, field for field
+and default for default: the mesh fields (``data_axes``, ``model_axis``,
+``fsdp``, ``fsdp_axes``, ``ep``, ``sp``, ``attn_batch_sharded``) feed
+``repro_torch.sharding.rules``; ``train.train_step`` reads ``grad_accum``,
+``remat``, ``use_kernels``, ``block_kv``, ``mxu_bf16`` and
+``compress_grads``; ``launch.train`` reads ``opt_state_dtype`` for the
+Adam moments.  ``scan_layers`` and ``donate_caches`` change nothing the
+port computes (see their comments).  Benchmark and dry-run input shapes
+are ``ShapeConfig`` instances (``SHAPES``), and :func:`cell_skip_reason`
+says which (arch, shape) cells do not run.
 """
 from __future__ import annotations
 
@@ -279,19 +280,55 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Parallelism (the reference's fields that one card honours, with its
-# defaults; see the module docstring)
+# Shapes (the assigned input-shape set; seq_len x global_batch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Parallelism (the reference's fields and defaults)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ParallelConfig:
+    data_axes: tuple = ("data",)     # batch-sharding axes (("pod","data") multi-pod)
+    model_axis: str = "model"        # TP axis
+    fsdp: bool = False               # shard params/opt-state over fsdp_axes
+    fsdp_axes: tuple = ("data",)     # within-pod by default (cross-pod = pure DP)
+    ep: bool = True                  # expert parallelism over model axis
+    sp: bool = False                 # sequence-sharded inputs (train/prefill)
     remat: str = "none"              # none | full | dots (checkpointing)
+    # the reference scans stacked layers when True; the port always loops
+    # over per-layer parameters, so this changes nothing it computes
+    scan_layers: bool = True
     grad_accum: int = 1              # microbatch count in train_step
     compress_grads: bool = False     # int8 all-reduce on the pod axis
     use_kernels: bool = False        # hand kernels (serving only: no backward)
     opt_state_dtype: str = "float32"  # bfloat16 halves Adam moment memory
     block_kv: int = 0                # blocked online-softmax chunk (0 = dense)
+    attn_batch_sharded: bool = False  # q/k/v placed batch (+head) sharded
+    # the reference donates the cache buffers to its jitted decode; the
+    # port's caches update in place already, so this changes nothing
+    donate_caches: bool = False
     mxu_bf16: bool = False           # bf16 attention operands, f32 products
+
+    @property
+    def batch_spec_axes(self):
+        return tuple(self.data_axes) if len(self.data_axes) > 1 else self.data_axes[0]
 
 
 # ---------------------------------------------------------------------------
@@ -336,3 +373,13 @@ def get_arch(name: str) -> ModelConfig:
 def list_archs() -> list:
     import repro_torch.configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+# Which (arch, shape) cells are skipped and why (the reference's rule).
+def cell_skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    if shape.name == "long_500k":
+        kinds = set(cfg.layer_kinds())
+        subquad = (cfg.attention == "sliding" or kinds & {RGLRU, MLSTM, SLSTM})
+        if not subquad:
+            return "skipped: pure full-attention arch (long_500k needs sub-quadratic)"
+    return None

@@ -19,3 +19,17 @@ from repro_torch.configs import starcoder2_3b  # noqa: F401
 from repro_torch.configs import starcoder2_7b  # noqa: F401
 from repro_torch.configs import whisper_base  # noqa: F401
 from repro_torch.configs import xlstm_350m  # noqa: F401
+
+# the dry-run's arch order (the reference's ``ASSIGNED``)
+ASSIGNED = [
+    "whisper-base",
+    "starcoder2-7b",
+    "qwen1.5-32b",
+    "starcoder2-3b",
+    "command-r-plus-104b",
+    "xlstm-350m",
+    "deepseek-v2-236b",
+    "granite-moe-1b-a400m",
+    "recurrentgemma-9b",
+    "internvl2-2b",
+]

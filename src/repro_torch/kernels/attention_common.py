@@ -88,6 +88,23 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             f"call it under torch.no_grad()")
 
 
+_DTENSOR = []
+
+
+def refuse_dtensor(name: str, *tensors: torch.Tensor) -> None:
+    """Raise for a DTensor input: a hand kernel runs on one device's whole
+    tensors, and a silent gather would hide the mesh.  The sharded paths
+    (training, the dry-run) run the plain path (``use_kernels=False``),
+    as the reference's presets do."""
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+        _DTENSOR.append(DTensor)
+    if any(isinstance(t, _DTENSOR[0]) for t in tensors):
+        raise TypeError(f"{name}: a DTensor reached the hand kernel; run "
+                        f"sharded tensors with use_kernels=False, or gather "
+                        f"them (full_tensor) first")
+
+
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True: launch the kernel.  False: every tensor is on the CPU, use the
     plain version.  Anything else (mixed devices, another backend, a

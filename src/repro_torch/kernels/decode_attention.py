@@ -50,6 +50,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or tuple(kv_pos.shape) != (B, C):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, q_pos "
                          f"{tuple(q_pos.shape)}, kv_pos {tuple(kv_pos.shape)}")
+    ac.refuse_dtensor("decode_attention", q, k, v)
     ac.refuse_grad("decode_attention", q, k, v)
     if not ac.on_cuda(q, k, v, q_pos, kv_pos):
         return decode_attention_plain(q, k, v, q_pos, kv_pos, window=window)

@@ -57,6 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or tuple(kv_pos.shape) != (B, C):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, q_pos "
                          f"{tuple(q_pos.shape)}, kv_pos {tuple(kv_pos.shape)}")
+    ac.refuse_dtensor("flash_attention", q, k, v)
     ac.refuse_grad("flash_attention", q, k, v)
     if not ac.on_cuda(q, k, v, q_pos, kv_pos):
         return flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,

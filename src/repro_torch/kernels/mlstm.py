@@ -40,7 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.attention_common import (DTYPES, NEG_INF, on_cuda,
-                                                  refuse_grad, stream)
+                                                  refuse_dtensor, refuse_grad,
+                                                  stream)
 
 DEFAULT_CHUNK = 128   # rows per chunk, compiled into csrc/recurrent.cu
 MAX_HEAD_DIM = 512    # C[:, 64 columns] + the q/k/V tiles fit on chip
@@ -183,6 +184,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if i_gate.shape != (B, S, H) or f_gate.shape != (B, S, H):
         raise ValueError(f"gates {tuple(i_gate.shape)}/{tuple(f_gate.shape)} "
                          f"must be (B,S,H) = {(B, S, H)}")
+    refuse_dtensor("mlstm_chunkwise", q, k, v, i_gate, f_gate)
     refuse_grad("mlstm_chunkwise", q, k, v, i_gate, f_gate)
     if not on_cuda(q, k, v, i_gate, f_gate):
         return mlstm_chunkwise_plain(q, k, v, i_gate, f_gate)

@@ -84,6 +84,7 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
     _check(q, kp, vp, ppos, tbl, q_pos)
     if q.shape[1] != 1:
         raise ValueError(f"decode takes one query token, got q {tuple(q.shape)}")
+    ac.refuse_dtensor("paged_decode_attention", q, kp, vp)
     ac.refuse_grad("paged_decode_attention", q, kp, vp)
     if not ac.on_cuda(q, kp, vp, ppos, tbl, q_pos):
         return paged_decode_attention_plain(q, kp, vp, ppos, tbl, q_pos,
@@ -108,6 +109,7 @@ def paged_flash_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     """q (B,S,Hq,D) against the pool; same arguments as the decode kernel.
     Returns (B,S,Hq,D) in q's dtype."""
     _check(q, kp, vp, ppos, tbl, q_pos)
+    ac.refuse_dtensor("paged_flash_attention", q, kp, vp)
     ac.refuse_grad("paged_flash_attention", q, kp, vp)
     if not ac.on_cuda(q, kp, vp, ppos, tbl, q_pos):
         return paged_flash_attention_plain(q, kp, vp, ppos, tbl, q_pos,

@@ -30,14 +30,15 @@ encoder's K/V, every position 0, not causal, no window, through
 ``dot_attention``, so ``use_kernels`` runs the flash kernel in its
 non-causal form (at S = 1 too: the decode kernel takes causal rows only).
 
-``RunOpts`` carries the reference's options that one card reads:
-``use_kernels``, ``remat`` (read by ``transformer.apply_stack``),
-``block_kv`` (the online-softmax :func:`blocked_dot_attention`) and
-``mxu_bf16`` (bf16 operands with fp32 products for the two attention
-products).  The reference's ``unroll_scan`` and ``interpret`` have no
-counterpart (the blocked attention is a Python loop, and the kernels have
-no interpret mode), and ``attn_specs`` is a sharding hint for the
-multi-device layer.
+``RunOpts`` carries the reference's options: ``use_kernels``, ``remat``
+(read by ``transformer.apply_stack``), ``block_kv`` (the online-softmax
+:func:`blocked_dot_attention`), ``mxu_bf16`` (bf16 operands with fp32
+products for the two attention products) and ``attn_specs`` (placements
+that DTensor q, k and v are moved to before attention).  The reference's
+``unroll_scan`` and ``interpret`` have no counterpart (the blocked
+attention is a Python loop, and the kernels have no interpret mode).
+Over DTensors the plain attention runs on each rank's local rows and
+heads (:func:`_on_local_shards`).
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.attention_common import paged_gather_plain
 from repro_torch.models.layers import apply_rope, dense, dense_params
+from repro_torch.sharding.gathered import (ContiguousGrad, is_dtensor,
+                                          merged_heads, splittable)
 
 NEG_INF = -1e30
 
@@ -66,6 +69,10 @@ class RunOpts:
     # the two attention products on operands rounded to K's/V's dtype,
     # products and sums in fp32 (softmax stays fp32); see dot_attention
     mxu_bf16: bool = False
+    # (q spec, k/v spec): ``sharding.rules.PartitionSpec`` placements q, k
+    # and v are redistributed to before attention where they are DTensors
+    # (the reference's ``with_sharding_constraint``); None leaves them
+    attn_specs: Optional[tuple] = None
 
 
 DEFAULT_OPTS = RunOpts()
@@ -246,6 +253,10 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if opts.use_kernels:
         return kops.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
                                     window=window)
+    if is_dtensor(q):
+        return _on_local_shards(
+            lambda *a: dot_attention(*a, causal=causal, window=window,
+                                     opts=opts), q, k, v, q_pos, kv_pos)
     if opts.block_kv and k.shape[1] % opts.block_kv == 0 \
             and k.shape[1] > opts.block_kv:
         return blocked_dot_attention(q, k, v, q_pos, kv_pos, causal=causal,
@@ -275,6 +286,60 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = torch.einsum("bskgc,bckd->bskgd", w, v.float())
     return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+
+def _constrain(q, k, v, specs):
+    """q, k, v redistributed to the placements of ``specs`` = (q spec,
+    k/v spec) on their own mesh."""
+    from repro_torch.sharding.rules import placements
+    q_spec, kv_spec = specs
+    mesh = q.device_mesh
+    return (q.redistribute(mesh, placements(mesh, q_spec)),
+            k.redistribute(mesh, placements(mesh, kv_spec)),
+            v.redistribute(mesh, placements(mesh, kv_spec)))
+
+
+def _on_local_shards(fn, q, k, v, q_pos, kv_pos):
+    """Attention over DTensors, run on each rank's local shards:
+    ``fn(q, k, v, q_pos, kv_pos)`` on plain tensors.  Attention is
+    independent across rows and heads, so each rank keeps q's rows where
+    q is sharded over them (dim 0) and its heads (dim 2) where q and k
+    both are, so local q heads meet their own kv heads; every other
+    placement is gathered first (a sequence or cache-length shard, heads
+    that do not divide the mesh).  Without this, DTensor runs the
+    products by merging row and head shards into one strided shard, whose
+    sharding search takes about a second a product here."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+
+    def as_dt(t):
+        if is_dtensor(t):
+            return t
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    k, v, q_pos, kv_pos = (as_dt(t) for t in (k, v, q_pos, kv_pos))
+    tq = []
+    for pq, pk in zip(q.placements, k.placements):
+        if pq == Shard(0):
+            tq.append(Shard(0))                       # rows
+        elif pq == Shard(2) and pk == Shard(2):
+            tq.append(Shard(2))                       # heads, both divide
+        else:
+            tq.append(Replicate())
+    tpos = [p if p == Shard(0) else Replicate() for p in tq]
+    local = [ContiguousGrad.apply(t.redistribute(mesh, pl).to_local())
+             for t, pl in ((q, tq), (k, tq), (v, tq), (q_pos, tpos),
+                           (kv_pos, tpos))]
+    out = fn(*local).contiguous()
+    shape = list(out.shape)                  # (B, S, H, Dv): v's last dim
+    for i, pl in enumerate(tq):
+        if pl.is_shard():
+            shape[pl.dim] *= mesh.size(i)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(out, mesh, tq, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 def blocked_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -333,10 +398,13 @@ def make_filled_cache(cfg: ModelConfig, k, v, positions, capacity: int):
     cap = min(window, capacity) if window else capacity
     dt = getattr(torch, cfg.compute_dtype)
     if S >= cap:
-        shift = int(positions[0, -1] + 1) % cap
-        ck = torch.roll(k[:, -cap:], shift, dims=1)
-        cv = torch.roll(v[:, -cap:], shift, dims=1)
-        cp = torch.roll(positions[:, -cap:], shift, dims=1)
+        # a roll by (last position + 1) % cap, as a gather on the card:
+        # ring slot j holds the tail's element (j - shift) % cap
+        shift = (positions[0, -1].long() + 1) % cap
+        src = (torch.arange(cap, device=k.device) - shift) % cap
+        ck = k[:, -cap:].index_select(1, src)
+        cv = v[:, -cap:].index_select(1, src)
+        cp = positions[:, -cap:].index_select(1, src)
     else:
         pad = cap - S
         ck = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -363,9 +431,14 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
       the block table; write columns derive from absolute positions
     """
     B, S, _ = x.shape
-    q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    q = splittable(dense(p["wq"], x), -1, H).reshape(B, S, H, cfg.head_dim)
+    k = splittable(dense(p["wk"], x), -1, Hkv).reshape(B, S, Hkv,
+                                                       cfg.head_dim)
+    v = splittable(dense(p["wv"], x), -1, Hkv).reshape(B, S, Hkv,
+                                                       cfg.head_dim)
+    if opts.attn_specs is not None and is_dtensor(q):
+        q, k, v = _constrain(q, k, v, opts.attn_specs)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -396,7 +469,7 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         if fill_cache:
             new_cache = make_filled_cache(cfg, k, v, positions,
                                           cache_capacity or S + 64)
-    y = dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+    y = dense(p["wo"], merged_heads(out.reshape(B, S, cfg.q_dim), H))
     return y, new_cache
 
 
@@ -416,18 +489,23 @@ def cross_attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     cache).  Every query and key sits at position 0, not causal: each
     query attends to all T keys."""
     B, S, _ = x.shape
-    q = dense(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = splittable(dense(p["wq"], x), -1, cfg.num_heads).reshape(
+        B, S, cfg.num_heads, cfg.head_dim)
     T = enc_kv["k"].shape[1]
     q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
     kv_pos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     out = dot_attention(q, enc_kv["k"], enc_kv["v"], q_pos, kv_pos,
                         causal=False, window=0, opts=opts)
-    return dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+    return dense(p["wo"], merged_heads(out.reshape(B, S, cfg.q_dim),
+                                       cfg.num_heads))
 
 
 def encode_cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> dict:
     """The encoder output's cross K/V, each (B, T, Hkv, Dh)."""
     B, T, _ = enc_out.shape
-    k = dense(p["wk"], enc_out).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], enc_out).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    Hkv = cfg.num_kv_heads
+    k = splittable(dense(p["wk"], enc_out), -1, Hkv).reshape(
+        B, T, Hkv, cfg.head_dim)
+    v = splittable(dense(p["wv"], enc_out), -1, Hkv).reshape(
+        B, T, Hkv, cfg.head_dim)
     return {"k": k, "v": v}

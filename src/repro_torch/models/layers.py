@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.param import P
+from repro_torch.sharding.gathered import is_dtensor, vocab_parallel_lookup
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -120,7 +121,12 @@ def embed_params(cfg: ModelConfig) -> dict:
 def embed_tokens(cfg: ModelConfig, p: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
     dtype = getattr(torch, cfg.compute_dtype)
-    return p["tokens"][tokens.long()].to(dtype)
+    table = p["tokens"]
+    if is_dtensor(table):
+        # each rank in its own vocab split (sharding.gathered): DTensor's
+        # index and embedding backward over a vocab split fail on some torch
+        return vocab_parallel_lookup(table, tokens).to(dtype)
+    return table[tokens.long()].to(dtype)
 
 
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

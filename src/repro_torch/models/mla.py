@@ -30,7 +30,9 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import DEFAULT_OPTS, NEG_INF, RunOpts
+from repro_torch.models.attention import (DEFAULT_OPTS, NEG_INF, RunOpts,
+                                         _on_local_shards)
+from repro_torch.sharding.gathered import is_dtensor, local_rows
 from repro_torch.models.layers import apply_rope, dense, dense_params
 from repro_torch.models.param import P
 
@@ -132,6 +134,15 @@ def _write_cache(cache: dict, c: torch.Tensor, k_rope: torch.Tensor,
     return cache
 
 
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, S, X) -> (B, S + pad, X), zeros after; a DTensor on each rank's
+    rows (DTensor's pad of a row split fails on some torch)."""
+    if is_dtensor(t):
+        local, wrap = local_rows(t, t)
+        return wrap(torch.nn.functional.pad(local, (0, 0, 0, pad)))
+    return torch.nn.functional.pad(t, (0, 0, 0, pad))
+
+
 def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
               positions: torch.Tensor,
               cache: Optional[dict] = None,
@@ -179,12 +190,20 @@ def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                                                         m.qk_rope_dim)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    scores = torch.einsum("bshd,bchd->bshc", q.float(), k.float()) * scale
-    causal = positions[:, :, None] >= positions[:, None, :]
-    scores = torch.where(causal[:, :, None, :], scores,
-                         torch.full_like(scores, NEG_INF))
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bshc,bchv->bshv", w, v.float())
+
+    def attend(q, k, v, q_pos, kv_pos):
+        scores = torch.einsum("bshd,bchd->bshc", q.float(), k.float()) * scale
+        causal = q_pos[:, :, None] >= kv_pos[:, None, :]
+        scores = torch.where(causal[:, :, None, :], scores,
+                             torch.full_like(scores, NEG_INF))
+        w = torch.softmax(scores, dim=-1)
+        return torch.einsum("bshc,bchv->bshv", w, v.float())
+
+    if is_dtensor(q):
+        # on each rank's local rows and heads (attention._on_local_shards)
+        out = _on_local_shards(attend, q, k, v, positions, positions)
+    else:
+        out = attend(q, k, v, positions, positions)
     y = dense(p["wo"], out.reshape(B, S, H * m.v_head_dim).to(x.dtype))
     new_cache = None
     if fill_cache:
@@ -192,8 +211,8 @@ def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         cap = cache_capacity or S + 64
         pad = max(cap - S, 0)
         new_cache = {
-            "c": torch.nn.functional.pad(c, (0, 0, 0, pad)).to(dt),
-            "k_rope": torch.nn.functional.pad(k_rope, (0, 0, 0, pad)).to(dt),
+            "c": _pad_seq(c, pad).to(dt),
+            "k_rope": _pad_seq(k_rope, pad).to(dt),
             "pos": torch.nn.functional.pad(positions, (0, pad),
                                            value=-1).to(torch.int32),
         }

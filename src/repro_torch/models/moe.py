@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, gelu, mlp_params
 from repro_torch.models.param import P
+from repro_torch.sharding.gathered import replicate, replicated_local
 
 
 def moe_params(cfg: ModelConfig) -> dict:
@@ -83,6 +84,10 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
               capacity_factor: float = 1.25):
     """x: (B, S, D).  Returns (y, aux_loss)."""
     m = cfg.moe
+    # over DTensors the layer runs on every token (rows gathered): the
+    # experts stay split over their axis, and the routing's scatters never
+    # meet a row split (sharding.gathered)
+    x = replicate(x)
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
     N = B * S
@@ -92,6 +97,9 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # --- routing (fp32 for numerics) ---
     logits = x2.float() @ p["router"].float()                        # (N,E)
     probs = torch.softmax(logits, dim=-1)
+    # the routing's index bookkeeping runs on the whole of probs on every
+    # rank (sharding.gathered); on plain tensors this is the identity
+    probs, as_dtensor = replicated_local(probs)
     gate, eid = _top_k(probs, K)                                     # (N,K)
     gate = gate / gate.sum(dim=-1, keepdim=True)                     # renorm
 
@@ -106,18 +114,26 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     tok_of_copy = torch.arange(N * K, device=dev) // K
     order = torch.argsort(eid_flat, stable=True)
     sorted_eid = eid_flat[order]
-    counts = torch.bincount(eid_flat, minlength=E)                   # (E,)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
+        0, eid_flat, torch.ones_like(eid_flat))                      # (E,)
     seg_start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * K, device=dev) - seg_start[sorted_eid]
     valid = rank < C
     dest = torch.where(valid, sorted_eid * C + rank,
                        torch.full_like(rank, E * C))     # drop -> scratch
 
-    # slot -> token (N: the zero pad row) and gate; only kept copies land
-    slot_tok = torch.full((E * C,), N, dtype=torch.long, device=dev)
-    slot_gate = torch.zeros((E * C,), dtype=torch.float32, device=dev)
-    slot_tok[dest[valid]] = tok_of_copy[order][valid]
-    slot_gate[dest[valid]] = gate.reshape(-1)[order][valid]
+    # slot -> token (N: the zero pad row) and gate; kept copies land in
+    # their slot, dropped ones in the scratch slot E*C, cut off after
+    slot_tok = torch.full((E * C + 1,), N, dtype=torch.long, device=dev)
+    slot_gate = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
+    slot_tok[dest] = tok_of_copy[order]
+    slot_gate[dest] = gate.reshape(-1)[order]
+    slot_tok, slot_gate = slot_tok[:E * C], slot_gate[:E * C]
+    copy_slot = torch.empty_like(dest)
+    copy_slot[order] = dest                     # copy (n, k) -> its slot
+    copy_slot = torch.sort(copy_slot.reshape(N, K), dim=1).values
+    slot_tok, slot_gate, copy_slot, aux = (
+        as_dtensor(t) for t in (slot_tok, slot_gate, copy_slot, aux))
 
     x_pad = torch.cat([x2, x2.new_zeros((1, D))], dim=0)
     xs = x_pad[slot_tok].reshape(E, C, D)                            # (E,C,D)
@@ -126,9 +142,6 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # --- combine: each token's K copies, ascending slot, in fp32 ---
     weighted = torch.cat([ys.float() * slot_gate[:, None],
                           ys.new_zeros((1, D), dtype=torch.float32)], dim=0)
-    copy_slot = torch.empty_like(dest)
-    copy_slot[order] = dest                     # copy (n, k) -> its slot
-    copy_slot = torch.sort(copy_slot.reshape(N, K), dim=1).values
     y = torch.zeros((N, D), dtype=torch.float32, device=dev)
     for j in range(K):
         y = y + weighted[copy_slot[:, j]]
@@ -136,4 +149,4 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     if m.num_shared_experts:
         y = y + apply_mlp(cfg, p["shared"], x)
-    return y, aux
+    return replicate(y), aux

@@ -11,8 +11,10 @@ generators — parity tests inject the reference's parameters through
 ``repro_torch.convert`` instead, and card-vs-CPU comparisons draw on the
 host and move the tree with :func:`tree_to`.
 
-Sharding specs (``PartitionSpec`` trees) are not ported: the port runs on
-one card.
+From a descriptor tree the module also derives :func:`abstract_tree`
+(shape-and-dtype stand-ins that hold no data: meta tensors, or fake ones
+under a ``FakeTensorMode``) and :func:`spec_tree` (the partition specs of
+``repro_torch.sharding.rules`` from logical-to-mesh axis rules).
 """
 from __future__ import annotations
 
@@ -84,6 +86,37 @@ def init_tree(ptree: Any, generator: torch.Generator,
     return _map_with_path(
         ptree, lambda p, path: _init_leaf(p, seed, path, default_dtype,
                                           device))
+
+
+def abstract_tree(ptree: Any, default_dtype: str = "float32",
+                  device="meta") -> Any:
+    """A tensor of each leaf's shape and dtype that holds no data: on the
+    meta device by default (the reference's ``ShapeDtypeStruct``), or a
+    fake tensor on ``device`` where a ``FakeTensorMode`` is active."""
+    return _map_with_path(ptree, lambda p, path: torch.empty(
+        p.shape, dtype=getattr(torch, p.dtype or default_dtype),
+        device=device))
+
+
+def spec_tree(ptree: Any, rules: dict) -> Any:
+    """Map logical axes -> mesh axes via ``rules`` (name -> mesh axis or
+    None): a ``sharding.rules.PartitionSpec`` per leaf."""
+    from repro_torch.sharding.rules import PartitionSpec
+
+    def f(p: P, path):
+        mesh_axes = []
+        used = set()
+        for ax in p.axes:
+            m = rules.get(ax) if ax is not None else None
+            # one mesh axis may appear at most once in a PartitionSpec
+            key = tuple(m) if isinstance(m, (tuple, list)) else (m,)
+            if m is not None and any(k in used for k in key):
+                m = None
+            if m is not None:
+                used.update(key)
+            mesh_axes.append(m)
+        return PartitionSpec(*mesh_axes)
+    return _map_with_path(ptree, f)
 
 
 def tree_map(fn, *trees: Any) -> Any:

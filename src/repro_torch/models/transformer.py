@@ -55,7 +55,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.config import ATTN, MLSTM, RGLRU, SLSTM, ModelConfig
+from repro_torch.config import (ATTN, MLSTM, RGLRU, SLSTM, ModelConfig,
+                                ShapeConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
@@ -66,7 +67,8 @@ from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_params,
                                        embed_tokens, mlp_params, norm_params,
                                        sinusoidal_positions, unembed)
-from repro_torch.models.param import P, init_tree
+from repro_torch.models.param import P, abstract_tree, init_tree
+from repro_torch.sharding.gathered import is_dtensor, settle
 
 # ---------------------------------------------------------------------------
 # Layer planning
@@ -193,6 +195,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                      resolve_device(device))
 
 
+def abstract_params(cfg: ModelConfig, device="meta"):
+    """The parameter tree's shapes and dtypes, holding no data
+    (``param.abstract_tree``: meta tensors, or fake ones on ``device``
+    under a ``FakeTensorMode``)."""
+    return abstract_tree(model_param_tree(cfg), cfg.param_dtype, device)
+
+
 # ---------------------------------------------------------------------------
 # Caches (a list of per-layer dicts)
 # ---------------------------------------------------------------------------
@@ -251,6 +260,47 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
         for kind in cfg.layer_kinds()]
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> List[dict]:
+    """``[{name: (shape, dtype)}]``, one dict per layer, of
+    :func:`init_caches`' leaves."""
+    check_supported(cfg)
+    cross = cfg.family == "encdec"
+    return [_block_cache_shapes(cfg, kind, batch, capacity, cross)
+            for kind in cfg.layer_kinds()]
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                device="meta") -> dict:
+    """Tensors holding no data (meta, or fake on ``device`` under a
+    ``FakeTensorMode``) of every model input of this cell, with the
+    shapes and dtypes of the reference's ``input_specs``; a decode cell's
+    ``caches`` are per layer, as :func:`init_caches` gives them."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device=device)
+
+    def frontends(specs):
+        if cfg.family == "encdec":
+            specs["frames"] = sds((B, cfg.encoder_seq, cfg.d_model), cdt)
+        if cfg.family == "vlm":
+            specs["patches"] = sds((B, cfg.num_patches, cfg.d_model), cdt)
+        return specs
+
+    if shape.kind == "train":
+        return frontends({"tokens": sds((B, S), i32),
+                          "labels": sds((B, S), i32),
+                          "mask": sds((B, S), torch.float32)})
+    if shape.kind == "prefill":
+        return frontends({"tokens": sds((B, S), i32)})
+    # decode: one new token against a cache of S entries
+    return {"tokens": sds((B, 1), i32), "index": sds((), i32),
+            "caches": [{k: sds(*v) for k, v in layer.items()}
+                       for layer in cache_shapes(cfg, B, S)]}
+
+
 def paged_eligible(cfg: ModelConfig) -> bool:
     """Paged KV needs every layer to be plain attention with a standard
     K/V cache: no MLA, no recurrent state, no encoder-decoder cross-K/V."""
@@ -289,6 +339,12 @@ def _apply_block(cfg: ModelConfig, kind: str, moe_flag: bool, p: dict,
     cache when it holds ``cross_k`` (even when ``enc_out`` was given, as in
     the reference), else projects ``enc_out``; a returned cache carries
     them on."""
+    if kind in (MLSTM, SLSTM) and is_dtensor(x):
+        return _block_on_local_rows(
+            cfg, kind, moe_flag, p, x, positions=positions, cache=cache,
+            cache_index=cache_index, causal=causal, fill_cache=fill_cache,
+            cache_capacity=cache_capacity, enc_out=enc_out, pages=pages,
+            opts=opts)
     xn = apply_norm(cfg, p["ln1"], x)
     if kind == ATTN:
         own = (None if cache is None else
@@ -352,6 +408,26 @@ def _apply_block(cfg: ModelConfig, kind: str, moe_flag: bool, p: dict,
         x = x + ssm_mod.slstm_ffn_apply(p["mix"], apply_norm(cfg, p["ln2"], x))
         return x, ncache, None
     raise ValueError(kind)
+
+
+
+def _block_on_local_rows(cfg: ModelConfig, kind: str, moe_flag: bool,
+                         p: dict, x: torch.Tensor, *, cache, **kw):
+    """An xLSTM block over DTensors: each rank runs its own rows as plain
+    tensors, the block's weights gathered (``sharding.gathered``).  The
+    sLSTM's recurrence is a loop over tokens and the mLSTM's heads merge
+    with rows in its products; DTensor's per-op placement search would
+    cost more than the whole block."""
+    from repro_torch.models.param import tree_map
+    from repro_torch.sharding.gathered import local_rows, replicated_local
+    xl, wrap = local_rows(x, x)
+    # the weights' gradients: each rank's rows' partial sums
+    pl = tree_map(lambda t: replicated_local(t, rows_of=x)[0], p)
+    cl = None if cache is None else {k: local_rows(v, x)[0]
+                                     for k, v in cache.items()}
+    y, nc, aux = _apply_block(cfg, kind, moe_flag, pl, xl, cache=cl, **kw)
+    return wrap(y), (None if nc is None else {k: wrap(v)
+                                              for k, v in nc.items()}), aux
 
 
 def apply_stack(cfg: ModelConfig, layers: list, sigs: list,
@@ -499,7 +575,8 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
                              opts=opts)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    gold = settle(torch.gather(logits, -1, batch["labels"].long()[..., None]))
+    gold = gold[..., 0]
     nll = lse - gold
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)

@@ -44,8 +44,8 @@ Where the port departs from the reference package's runner:
     and virtual-clock costs do not.
   * :func:`warm_kernels` replaces the reference's ``warm_jits``.
   * ``parallel=True`` drives the fleet through the fused fleet tick
-    (``streams.fleet_step``); its only ``fleet_mode`` is ``"vmap"``
-    (``"shard_map"`` raises: one card has no replica mesh).
+    (``streams.fleet_step``), ``fleet_mode`` ``"vmap"`` or ``"shard_map"``
+    (a replica mesh of one device a replica: on one card, one replica).
 """
 from __future__ import annotations
 

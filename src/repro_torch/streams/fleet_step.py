@@ -34,11 +34,24 @@ replicas in one call with one computation per **tier group**:
     held equal to the per-replica forwards' by tests, on the CPU and the
     card.
 
-Modes: ``"vmap"`` (the only one here) is that flattened, stacked layout on
-one device.  The reference's ``"shard_map"`` maps one program over a mesh
-of devices; one card has none, so asking for it raises
-``NotImplementedError`` (the multi-device layer, ROADMAP.md queue 1,
-item 7).
+Modes (the reference's two):
+
+  * ``"vmap"``: that flattened, stacked layout on one device;
+  * ``"shard_map"``: the reference's single-controller replica mesh,
+    ``sharding.compat.make_mesh((R,), ("replica",))``: a list of R
+    devices (the visible cards, or the CPU repeated in place of the
+    reference's forced host devices), not a process group.  Replica i's
+    rows live on mesh device i (its engine must be built there), and each
+    replica runs the single-replica program: its own group of one, the
+    serial engine's forward on its own weights, so its results are bit for
+    bit the serial tick's.  It needs one tier group (a mesh maps one
+    program) and as many devices as replicas; too small a pool raises
+    with the number the mesh needs.
+
+Without a mode, ``resolve_mode`` picks ``"shard_map"`` only when R > 1
+and the engines are on cards with at least R of them, as the reference
+picks it only on an accelerator mesh with enough devices; on one card it
+picks ``"vmap"``.
 
 Inside the call the kernels are the serial path's: ``vision_ops.
 ingest_frame`` / ``scatter_admit`` on the kernel path, the gate's own
@@ -77,6 +90,7 @@ import torch
 from repro_torch.core.clock import VirtualClock
 from repro_torch.kernels import vision_ops
 from repro_torch.models import vision as V
+from repro_torch.sharding.compat import make_mesh
 from repro_torch.streams.filter import gate_scores
 from repro_torch.streams.vision_engine import INNER, OUTER, VisionServeEngine
 
@@ -84,20 +98,31 @@ MODES = ("shard_map", "vmap")
 KINDS = (OUTER, INNER)
 
 
-def resolve_mode(n_replicas: int, mode: Optional[str] = None) -> str:
-    """``"vmap"`` unless asked otherwise: the port runs on one card, so
-    the replicas map along a flattened leading axis on it.  ``"shard_map"``
-    raises ``NotImplementedError``; any other string ``ValueError``."""
-    if mode is None:
-        return "vmap"
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "shard_map":
-        raise NotImplementedError(
-            f"fleet_mode='shard_map' maps the {n_replicas} replicas over a "
-            f"mesh of devices; the port runs on one card and has no "
-            f"multi-device layer yet (ROADMAP.md queue 1, item 7)")
-    return mode
+def resolve_mode(n_replicas: int, mode: Optional[str] = None,
+                 device_type: str = "cuda") -> str:
+    """``shard_map`` on cards when there are at least ``n_replicas`` > 1 of
+    them, ``vmap`` otherwise; an explicit mode is taken as asked.  Any
+    other string raises ``ValueError``."""
+    if mode is not None:
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        return mode
+    if (n_replicas > 1 and device_type == "cuda"
+            and torch.cuda.is_available()
+            and torch.cuda.device_count() >= n_replicas):
+        return "shard_map"
+    return "vmap"
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` are one card when card 0 is current."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return (a.index if a.index is not None else cur()) == (
+        b.index if b.index is not None else cur())
 
 
 class FleetStep:
@@ -109,12 +134,27 @@ class FleetStep:
             raise ValueError("need at least one engine replica")
         self.replicas: List[VisionServeEngine] = list(replicas)
         ref = self.replicas[0]
-        for r in self.replicas:
+        self.mode = resolve_mode(len(self.replicas), mode,
+                                 ref.device.type)
+        # the replica mesh: one device per replica (a list, not a process
+        # group); too small a pool raises with the count the mesh needs
+        self.mesh = (make_mesh((len(self.replicas),), ("replica",),
+                               device_type=ref.device.type)
+                     if self.mode == "shard_map" else None)
+        for i, r in enumerate(self.replicas):
             # fleet-wide uniform: slot width, source frame geometry, the
-            # kernel path and the device.  Model geometry (dc/pc/input_res/
-            # batch dtype) may differ per replica — those split into tier
-            # groups below.
-            for attr in ("slots", "frame_res", "use_kernels", "device"):
+            # kernel path and the device (in shard_map mode, each replica
+            # on its mesh device).  Model geometry (dc/pc/input_res/batch
+            # dtype) may differ per replica — those split into tier groups
+            # below.
+            if self.mesh is not None and not _same_device(r.device,
+                                                          self.mesh[i]):
+                raise ValueError(
+                    f"shard_map puts replica {i} ({r.name}) on "
+                    f"{self.mesh[i]}; its engine is on {r.device}")
+            uniform = ("slots", "frame_res", "use_kernels") + (
+                ("device",) if self.mesh is None else ())
+            for attr in uniform:
                 if getattr(r, attr) != getattr(ref, attr):
                     raise ValueError(
                         f"fleet-parallel tick needs uniform engine geometry: "
@@ -123,7 +163,6 @@ class FleetStep:
             if (r.gates[OUTER] is None) != (ref.gates[OUTER] is None):
                 raise ValueError("fleet-parallel tick needs a uniform "
                                  "use_gate setting across replicas")
-        self.mode = resolve_mode(len(self.replicas), mode)
         self.slots = ref.slots
         self.frame_res = ref.frame_res
         self.device = ref.device
@@ -155,6 +194,19 @@ class FleetStep:
             else:
                 self._group_keys.append(sig)
                 self._members.append([i])
+        if self.mesh is not None and len(self._group_keys) > 1 \
+                and mode is None:
+            self.mode, self.mesh = "vmap", None   # auto-resolved: fall back
+        if self.mesh is not None:
+            if len(self._group_keys) > 1:
+                raise ValueError(
+                    "shard_map maps one program over the replica mesh and "
+                    "cannot mix tier geometries; mixed-tier fleets run "
+                    "mode='vmap'")
+            # each replica its own group of one, on its own device
+            self._group_keys = self._group_keys * len(self.replicas)
+            self._members = [[i] for i in range(len(self.replicas))]
+        self._devs = [self.replicas[mem[0]].device for mem in self._members]
         order = np.concatenate([np.asarray(m) for m in self._members])
         # the gather that restores replica order in the mask output
         self._inv = (None if (order == np.arange(len(order))).all()
@@ -173,12 +225,12 @@ class FleetStep:
         # per group, per class: threshold, has-ref and active, float32 —
         # one upload a tick; the threshold keeps its float32 value
         self._ctl: List[torch.Tensor] = []
-        for mem in self._members:
+        for mem, dev in zip(self._members, self._devs):
             buf = torch.zeros((len(mem), S, H, H, 3), dtype=torch.float32,
                               pin_memory=pin)
             self._stage_groups.append(buf)
             self._stage_dev.append(torch.zeros(buf.shape, dtype=buf.dtype,
-                                               device=self.device))
+                                               device=dev))
             self._ctl.append(torch.zeros((len(KINDS), 3, len(mem) * S),
                                          dtype=torch.float32,
                                          pin_memory=pin))
@@ -195,9 +247,8 @@ class FleetStep:
                     for mem in self._members]
         # gateless scatters still take (fixed-shape) reference operands
         self._null_refs = [torch.zeros((len(mem) * S, 1, 1, 3),
-                                       dtype=torch.float32,
-                                       device=self.device)
-                           for mem in self._members]
+                                       dtype=torch.float32, device=dev)
+                           for mem, dev in zip(self._members, self._devs)]
         # the last call's stacked outputs and the row views handed to the
         # engines, per (group, state name): reused as the next call's
         # input only while every engine still holds exactly those views
@@ -276,6 +327,14 @@ class FleetStep:
         """The group's model for ``kind`` on (R_g, slots, ...) batches;
         (R_g*slots,) per-lane flags."""
         dc, pc = self._group_keys[g][:2]
+        if self.mesh is not None:
+            # the single-replica program: the serial engine's forward
+            r = self.replicas[self._members[g][0]]
+            if kind == OUTER:
+                flags, _ = V.analyse_outer(dc, r.dp, batch[0])
+                return flags.any(dim=1).reshape(-1)
+            distracted, _ = V.analyse_inner(pc, r.pp, batch[0])
+            return distracted.reshape(-1)
         if kind == OUTER:
             flags, _ = V.analyse_outer_stacked(dc, self._dp[g], batch)
             return flags.any(dim=2).reshape(-1)
@@ -289,9 +348,9 @@ class FleetStep:
         the (4, R, slots) masks (admit outer, admit inner, flags outer,
         flags inner) back once.  Returns (host masks, {(group, state
         name): (R_g, ...) new state})."""
-        dev = self.device
         per_group, out = [], {}
         for g, mem in enumerate(self._members):
+            dev = self._devs[g]
             ctl = self._ctl[g].numpy()
             for k, kind in enumerate(KINDS):
                 ctl[k, 2] = act[kind][mem].reshape(-1)
@@ -329,6 +388,10 @@ class FleetStep:
                 [r[0] if r else none for r in rows]
                 + [r[1] if r else none for r in rows]
             ).reshape(4, len(mem), self.slots))
+        if self.mesh is not None:
+            # one read a replica device, in replica order
+            return (np.concatenate([m.cpu().numpy() for m in per_group],
+                                   axis=1), out)
         masks = torch.cat(per_group, dim=1)
         if self._inv is not None:
             masks = masks[:, self._inv]

@@ -23,6 +23,11 @@ numpy has no bf16 of its own, and the card's machine has no ``ml_dtypes``.
     returns, then writes on a thread, so the optimizer may update the
     tensors in place at once.
   * bounded: the ``keep`` newest checkpoints survive GC.
+  * elastic: a DTensor leaf is gathered whole on save (every rank takes
+    part; rank 0 writes), and ``restore(..., shardings=...)`` places each
+    saved leaf onto the run's mesh by a ``sharding.rules.NamedSharding``
+    tree, whatever mesh wrote it (the reference's
+    ``make_array_from_callback`` restore).
 """
 from __future__ import annotations
 
@@ -42,13 +47,18 @@ from repro_torch.device import resolve_device
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
-def _flatten(tree: Any, path: tuple = ()) -> List[Tuple[tuple, Any]]:
+def _flatten(tree: Any, path: tuple = (),
+             leaf=lambda x: False) -> List[Tuple[tuple, Any]]:
     """(path, leaf) pairs, dict keys sorted as ``jax.tree_util`` sorts
-    them."""
+    them; ``leaf(x)`` stops the descent at ``x``."""
+    if leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
-        return [pl for k in sorted(tree) for pl in _flatten(tree[k], path + (k,))]
+        return [pl for k in sorted(tree)
+                for pl in _flatten(tree[k], path + (k,), leaf)]
     if isinstance(tree, (list, tuple)):
-        return [pl for i, v in enumerate(tree) for pl in _flatten(v, path + (i,))]
+        return [pl for i, v in enumerate(tree)
+                for pl in _flatten(v, path + (i,), leaf)]
     return [(path, tree)]
 
 
@@ -65,6 +75,16 @@ def _rebuild(tree: Any, values: dict, path: tuple = ()) -> Any:
     return values[path]
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _dtype_name(dt: torch.dtype) -> str:
     return str(dt).replace("torch.", "")
 
@@ -75,8 +95,15 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
     thread (joined if blocking); once it has ended, its ``write_s`` holds
     the seconds the write took."""
     # snapshot to host memory NOW: the optimizer writes in place after return
-    host = [(path, t.detach().to("cpu", copy=True))
+    host = [(path, _whole(t).detach().to("cpu", copy=True))
             for path, t in _flatten(tree)]
+    if _rank() != 0:
+        # the leaves were gathered whole; one rank writes them
+        writer = threading.Thread(target=lambda: None, daemon=True)
+        writer.start()
+        writer.join()
+        writer.write_s = 0.0
+        return writer
 
     def write():
         t0 = time.perf_counter()
@@ -131,12 +158,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
-            device=None) -> Tuple[Any, int]:
+            device=None, shardings: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``tree_like`` (leaves: anything with
     a torch ``dtype``, e.g. tensors; each restored leaf is cast to it) on
-    ``device``, the card unless ``"cpu"`` is asked.  ``step`` defaults to
-    the latest complete one.  Returns (tree, step)."""
+    ``device``, the card unless ``"cpu"`` is asked.  ``shardings``: an
+    optional tree like ``tree_like`` of ``sharding.rules.NamedSharding``;
+    each leaf is then placed on its mesh, a DTensor holding this rank's
+    slice (elastic restore).  ``step`` defaults to the latest complete
+    one.  Returns (tree, step)."""
     dev = resolve_device(device)
+    shard_of = dict(_flatten(shardings, leaf=_is_sharding)) \
+        if shardings is not None else {}
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -151,5 +183,14 @@ def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
         m = meta[key]
         raw = np.load(os.path.join(d, key + ".npy"))
         t = torch.from_numpy(raw).view(getattr(torch, m["dtype"]))
-        values[path] = t.reshape(m["shape"]).to(device=dev, dtype=like.dtype)
+        t = t.reshape(m["shape"]).to(device=dev, dtype=like.dtype)
+        if path in shard_of:
+            from torch.distributed.tensor import distribute_tensor
+            s = shard_of[path]
+            t = distribute_tensor(t, s.mesh, s.placements, src_data_rank=None)
+        values[path] = t
     return _rebuild(tree_like, values), step
+
+
+def _is_sharding(x) -> bool:
+    return hasattr(x, "mesh") and hasattr(x, "placements")

@@ -61,10 +61,12 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params: Any, state_dtype: str = "float32") -> dict:
-    """Zero moments in ``state_dtype`` beside each parameter, and ``step``
-    an int32 0 on the first parameter's device."""
+    """Zero moments in ``state_dtype`` beside each parameter (placed as
+    it is, where it is a DTensor), and ``step`` an int32 0 on the first
+    parameter's device."""
     dt = getattr(torch, state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt,
+                                       memory_format=torch.contiguous_format)
     dev = tree_leaves(params)[0].device
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

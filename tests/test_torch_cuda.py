@@ -1407,3 +1407,110 @@ def test_kernels_refuse_grad_on_card(dev):
         assert kops.launches()[name] == 1, name
         tol = MLSTM_TOL if name == "mlstm_chunkwise" else TIGHT
         torch.testing.assert_close(got, plain[name](x), **tol)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on one card (chip_smoke.py phase 19)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    """A one-rank NCCL process group (a file rendezvous), torn down after
+    the test."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dtensor_train_step_on_a_one_rank_mesh_equals_plain(dev, no_tf32,
+                                                             nccl_world):
+    """Phase 19 (a) at 2 layers: DTensor parameters, moments and batch on
+    a (1, 1) NCCL mesh give the plain step's loss (1e-5) and grad norm
+    (1e-4), and no hand kernel launches."""
+    import dataclasses
+    from repro_torch.config import ParallelConfig, ShapeConfig
+    from repro_torch.data import lm_batches
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.compat import make_device_mesh
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    cfg = dataclasses.replace(get_arch("starcoder2-3b"), num_layers=2)
+    par = ParallelConfig(grad_accum=2)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in next(
+        lm_batches(4, 128, cfg.vocab_size, seed=0, steps=1)).items()}
+    kops.reset_launches()
+    got = {}
+    for side in ("plain", "dtensor"):
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        mesh, b = None, batch
+        if side == "dtensor":
+            mesh = make_device_mesh((1, 1), ("data", "model"))
+            params = rules.distribute(params, mesh,
+                                      rules.param_pspecs(cfg, par, mesh))
+            b = rules.distribute(batch, mesh, rules.batch_pspecs(
+                cfg, ShapeConfig("t", 128, 4, "train"), par, mesh))
+        step = make_train_step(cfg, par, AdamWConfig(lr=1e-3,
+                                                     warmup_steps=1),
+                               mesh=mesh)
+        _, _, m = step(params, init_opt_state(params), b)
+        got[side] = (float(m["loss"]), float(m["grad_norm"]))
+    assert not any(kops.launches().values())
+    (lp, gp), (ld, gd) = got["plain"], got["dtensor"]
+    assert abs(ld - lp) <= 1e-5 * abs(lp) and abs(gd - gp) <= 1e-4 * abs(gp)
+
+
+@pytest.mark.cuda
+def test_hw_h100_matches_the_card(dev):
+    """Phase 19 (b): the name, 132 SMs, the capacity within 5 % of the
+    datasheet's 80 GB counted in GiB, and at least ``hbm_bytes``."""
+    from repro_torch.roofline.analysis import H100_SMS, HW_H100
+    prop = torch.cuda.get_device_properties(0)
+    assert prop.name == HW_H100.name
+    assert prop.multi_processor_count == H100_SMS == 132
+    assert abs(prop.total_memory / 2 ** 30 - 80) <= 0.05 * 80
+    assert prop.total_memory >= HW_H100.hbm_bytes
+
+
+@pytest.mark.cuda
+def test_collectives_pipeline_and_replica_mesh_on_one_card(dev, nccl_world):
+    """Phase 19 (e): ``int8_psum`` on one rank is the int8 rounding of x;
+    a one-stage pipeline equals the stack; a one-replica fleet through
+    ``shard_map`` equals ``vmap`` and serial; two replicas on one card
+    are refused with the card count."""
+    from repro_torch.sharding.collectives import int8_psum
+    from repro_torch.sharding.compat import make_device_mesh
+    from repro_torch.sharding.pipeline import make_pipeline, stage_split
+    from repro_torch.simulate import ReplicaSpec, get_scenario, run_scenario
+    from repro_torch.streams import FleetStep
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(1000, device=dev, generator=g)
+    s = x.abs().max() / 127.0
+    torch.testing.assert_close(int8_psum(x), torch.round(x / s) * s,
+                               rtol=0, atol=0)
+    mesh = make_device_mesh((1,), ("stage",))
+    ws = torch.randn(2, 16, 16, device=dev, generator=g) * 0.3
+    xs = torch.randn(3, 2, 16, device=dev, generator=g)
+
+    def stage_fn(w, h):
+        for wi in w:
+            h = torch.tanh(h @ wi)
+        return h
+    got = make_pipeline(stage_fn, mesh)(stage_split(ws, 1), xs)
+    torch.testing.assert_close(got, torch.stack([stage_fn(ws, xs[m])
+                                                 for m in range(3)]))
+    sc = get_scenario("golden_churn", ticks=40,
+                      replicas=(ReplicaSpec("r0", slots=4),))
+    digests = {mode: run_scenario(sc, device=dev, parallel=mode is not None,
+                                  fleet_mode=mode).digest
+               for mode in (None, "vmap", "shard_map")}
+    assert len(set(digests.values())) == 1, digests
+    engines = [VisionServeEngine(f"m{i}", slots=4, frame_res=32,
+                                 input_res=16, device=dev,
+                                 generator=torch.Generator().manual_seed(i))
+               for i in range(2)]
+    n = torch.cuda.device_count()
+    if n < 2:
+        with pytest.raises(ValueError, match=f"only {n} available"):
+            FleetStep(engines, mode="shard_map")

@@ -238,12 +238,16 @@ def test_fleet_step_refuses_what_it_cannot_run():
     staged.push("v0", np.zeros((32, 32, 3), np.float32))
     with pytest.raises(RuntimeError, match="fused fleet tick"):
         staged.step()
-    assert resolve_mode(4) == "vmap" == resolve_mode(4, "vmap")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        FleetStep([eng("a"), eng("b")], mode="shard_map")
-    with pytest.raises(NotImplementedError, match="multi-device layer"):
-        run_scenario(get_scenario("golden_churn", ticks=2), device="cpu",
-                     parallel=True, fleet_mode="shard_map")
+    assert resolve_mode(4, device_type="cpu") == "vmap" == resolve_mode(
+        4, "vmap")
+    # shard_map resolves; a replica mesh larger than the pool raises with
+    # the number of devices it needs
+    assert resolve_mode(2, "shard_map") == "shard_map"
+    assert FleetStep([eng("a"), eng("b")], mode="shard_map").mode == \
+        "shard_map"
+    from repro_torch.sharding.compat import make_mesh
+    with pytest.raises(ValueError, match=r"needs 3 devices, only 2"):
+        make_mesh((3,), ("replica",), devices=[torch.device("cpu")] * 2)
     with pytest.raises(ValueError, match="mode must be one of"):
         resolve_mode(2, "pmap")
 
