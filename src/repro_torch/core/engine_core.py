@@ -465,7 +465,7 @@ class EngineCore:
                                       **args)
 
     def tinstant(self, name: str, **args) -> None:
-        """A zero-duration marker (TTFT, admission) on this tick's
+        """A zero-duration marker (an admission) on this tick's
         tracer."""
         self._tick_tracer.instant(self.clock, name, tid=self.name, **args)
 

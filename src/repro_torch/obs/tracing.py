@@ -2,8 +2,12 @@
 
 Every engine tick decomposes into the phases the serving stack already
 executes — ``begin_tick`` / ``stage`` / ``ingest`` / ``gate`` / ``admit``
-/ ``forward`` / ``commit`` / ``end_tick`` on the vision shell, plus
-``prefill`` / ``decode`` (and a ``ttft`` instant) on the token shell.
+/ ``forward`` / ``commit`` / ``end_tick`` on the vision shell; on the token
+shell, each admission's ``prefill`` (holding ``prefill.upload``, one
+``prefill.forward`` a chunk with its ``tokens``, and ``prefill.read``)
+and each tick's ``decode`` (holding ``decode.upload``, ``decode.forward``
+and ``decode.read``) followed by ``commit``.  Nesting is by time on the
+engine's trace thread.
 :class:`SpanTracer` records those phases as Chrome trace events
 (``{"traceEvents": [...]}`` JSON, drag into https://ui.perfetto.dev or
 chrome://tracing) with one trace *thread per engine*, so a fleet tick
@@ -161,7 +165,7 @@ class SpanTracer:
         self._emit(ev)
 
     def instant(self, clock, name: str, tid: str = "main", **args) -> None:
-        """Zero-duration marker (TTFT, admission, eviction)."""
+        """Zero-duration marker (admission, eviction)."""
         ev = {"ph": "i", "name": name, "pid": 0, "tid": self._tid(tid),
               "ts": round(clock.now_s() * 1e6, 3), "s": "t"}
         if args:

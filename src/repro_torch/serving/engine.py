@@ -302,21 +302,29 @@ class ServeEngine(EngineCore):
         """Chunked prefill in DESCENDING POWER-OF-TWO chunks capped at
         ``prefill_chunk`` and at the ring (e.g. 23 -> 8+8+4+2+1): never any
         padding; an odd prompt ends in a 1-token chunk, which attends
-        through the decode kernel.  Returns the sampled first token."""
-        toks = self._dev(req.tokens, torch.long)[None, :]
-        S = int(toks.shape[1])
-        pos = torch.arange(S, dtype=torch.int32, device=self.device)[None, :]
-        max_chunk = min(self.prefill_chunk, self.capacity)
-        if self.paged:
-            # a chunk must not exceed the slot's ring (two positions of one
-            # scatter mapping to the same pool entry would race)
-            max_chunk = min(max_chunk,
-                            int(self._tbl_len[slot]) * self.block_size)
-            tbl = self._dev(self._tbl[slot: slot + 1])
-            tlen = self._dev(self._tbl_len[slot: slot + 1])
-        else:
-            max_chunk = min(max_chunk, self._dense_ring)
-            row = T.init_caches(self.cfg, 1, self.capacity, device=self.device)
+        through the decode kernel.  Returns the sampled first token.
+
+        Phase spans: ``prefill.upload`` (the prompt, its positions and the
+        slot's table row or fresh cache row; paged, each chunk's ``reset``
+        flag again), ``prefill.forward`` per chunk (``tokens`` its width),
+        ``prefill.read`` (the first token's fetch)."""
+        with self.tspan("prefill.upload"):
+            toks = self._dev(req.tokens, torch.long)[None, :]
+            S = int(toks.shape[1])
+            pos = torch.arange(S, dtype=torch.int32,
+                               device=self.device)[None, :]
+            max_chunk = min(self.prefill_chunk, self.capacity)
+            if self.paged:
+                # a chunk must not exceed the slot's ring (two positions of
+                # one scatter mapping to the same pool entry would race)
+                max_chunk = min(max_chunk,
+                                int(self._tbl_len[slot]) * self.block_size)
+                tbl = self._dev(self._tbl[slot: slot + 1])
+                tlen = self._dev(self._tbl_len[slot: slot + 1])
+            else:
+                max_chunk = min(max_chunk, self._dense_ring)
+                row = T.init_caches(self.cfg, 1, self.capacity,
+                                    device=self.device)
         max_chunk = 1 << (max_chunk.bit_length() - 1)
         first = None
         c0 = 0
@@ -325,18 +333,22 @@ class ServeEngine(EngineCore):
             while chunk > S - c0:
                 chunk //= 2
             if self.paged:
-                reset = self._dev([1 if c0 == 0 else 0])
-                first, self.caches = self._fns["paged_prefill"](
-                    self.params, self.caches, toks[:, c0: c0 + chunk],
-                    pos[:, c0: c0 + chunk], tbl, tlen, reset)
+                with self.tspan("prefill.upload"):
+                    reset = self._dev([1 if c0 == 0 else 0])
+                with self.tspan("prefill.forward", tokens=chunk):
+                    first, self.caches = self._fns["paged_prefill"](
+                        self.params, self.caches, toks[:, c0: c0 + chunk],
+                        pos[:, c0: c0 + chunk], tbl, tlen, reset)
             else:
-                first, row = self._fns["prefill"](
-                    self.params, row, toks[:, c0: c0 + chunk],
-                    pos[:, c0: c0 + chunk], c0)
+                with self.tspan("prefill.forward", tokens=chunk):
+                    first, row = self._fns["prefill"](
+                        self.params, row, toks[:, c0: c0 + chunk],
+                        pos[:, c0: c0 + chunk], c0)
             c0 += chunk
         if not self.paged:
             self.caches = insert_row(self.caches, row, slot)
-        return int(first)
+        with self.tspan("prefill.read"):
+            return int(first)
 
     def _admit(self, slot: int, req: Request) -> None:
         """Allocate KV (paged: may raise :class:`BlockPoolExhausted` BEFORE
@@ -357,7 +369,6 @@ class ServeEngine(EngineCore):
 
         req.generated.append(first)
         req.prefill_done_s = self.clock.now_s()
-        self.tinstant("ttft", rid=req.rid, ttft_ms=req.ttft_ms)
         self.pool.bind(req, slot)
         self.slot_pos[slot] = S
         self.slot_last[slot] = first
@@ -458,7 +469,13 @@ class ServeEngine(EngineCore):
     @torch.no_grad()
     def step(self) -> int:
         """One engine tick: admit into free slots, then decode one token
-        for every active slot.  Returns tokens generated."""
+        for every active slot.  Returns tokens generated.
+
+        Phase spans: ``decode`` holds ``decode.upload`` (the slots' last
+        tokens, positions and, paged, the block table), ``decode.forward``
+        (the model step and sampling as enqueued) and ``decode.read`` (the
+        sampled ids' fetch, which waits for the card); ``commit`` (the
+        tokens appended, budgets applied, requests retired) follows."""
         t0 = self.begin_tick()
         if not any(self.active):
             self.end_tick(t0, 0)
@@ -467,29 +484,31 @@ class ServeEngine(EngineCore):
         t_d = self.clock.now_s()
         n_active = sum(r is not None for r in self.active)
         with self.tspan("decode", n=n_active):
-            tokens = self._dev(self.slot_last[:, None], torch.long)
-            positions = self._dev(self.slot_pos)
-            if self.paged:
-                nxt, self.caches = self._fns["paged_decode"](
-                    self.params, self.caches, tokens, positions,
-                    self._dev(self._tbl), self._dev(self._tbl_len))
-            else:
-                nxt, self.caches = self._fns["decode"](
-                    self.params, self.caches, tokens, positions)
-            nxt_host = nxt.cpu().numpy()
+            with self.tspan("decode.upload"):
+                tokens = self._dev(self.slot_last[:, None], torch.long)
+                positions = self._dev(self.slot_pos)
+                pages = ((self._dev(self._tbl), self._dev(self._tbl_len))
+                         if self.paged else ())
+            with self.tspan("decode.forward"):
+                nxt, self.caches = self._fns[
+                    "paged_decode" if self.paged else "decode"](
+                    self.params, self.caches, tokens, positions, *pages)
+            with self.tspan("decode.read"):
+                nxt_host = nxt.cpu().numpy()
             dt = self.finish_dispatch(n_active, t_d, TOKEN)
 
-        self.slot_pos = self.slot_pos + 1
-        self.slot_last = nxt_host.astype(np.int32)
-        for slot, req in enumerate(list(self.active)):
-            if req is None:
-                continue
-            req.generated.append(int(nxt_host[slot]))
-            req.processing_ms += dt * 1000.0 / n_active
-            budget = self._token_budget(req)
-            if len(req.generated) >= min(req.max_new_tokens, budget) \
-                    or int(self.slot_pos[slot]) >= self.capacity - 1:
-                self._retire(req)
+        with self.tspan("commit"):
+            self.slot_pos = self.slot_pos + 1
+            self.slot_last = nxt_host.astype(np.int32)
+            for slot, req in enumerate(list(self.active)):
+                if req is None:
+                    continue
+                req.generated.append(int(nxt_host[slot]))
+                req.processing_ms += dt * 1000.0 / n_active
+                budget = self._token_budget(req)
+                if len(req.generated) >= min(req.max_new_tokens, budget) \
+                        or int(self.slot_pos[slot]) >= self.capacity - 1:
+                    self._retire(req)
         self.tokens_generated += n_active
         self.end_tick(t0, n_active)
         return n_active

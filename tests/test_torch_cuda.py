@@ -8,6 +8,8 @@ pin them together.  Run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import bisect
+
 import numpy as np
 import pytest
 import torch
@@ -530,6 +532,53 @@ def test_token_engine_on_card_matches_cpu(dev):
                                  "paged_decode"}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+def test_decode_spans_hold_their_launches_on_the_profilers_clock(dev):
+    """The benchmark's join of the profiler's events with the program's
+    spans (``portbench/harness/trace.py``: spans on ``time.perf_counter``,
+    shifted by ``time.time_ns() - time.perf_counter_ns()`` read as the
+    profiler starts): in ticks that only decode, every kernel launch the
+    profiler records lies inside a ``decode`` span of the token engine."""
+    from portbench.harness.session import tracer_spans
+    from portbench.harness.trace import DeviceTrace
+    from repro_torch.obs.tracing import SpanTracer
+    cfg = get_arch("starcoder2-3b").reduced()
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=dev)
+    eng = ServeEngine(cfg, params, slots=2, cache_capacity=64,
+                      prefill_chunk=16, block_size=16, paged=True,
+                      opts=RunOpts(use_kernels=True), device=dev)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((23, 12)):
+        eng.submit(Request(rid=f"r{i}", tokens=rng.integers(0, 256, n),
+                           max_new_tokens=32))
+    eng.step()              # admits both: the traced ticks only decode
+    eng.step()
+    tracer = SpanTracer()
+    eng.attach_obs(tracer=tracer)
+    dt = DeviceTrace(torch, True)
+    with dt:
+        for _ in range(6):
+            eng.step()
+    off = dt._offset_ns
+    spans = sorted((s * 1e9 + off, t * 1e9 + off)
+                   for name, s, t in tracer_spans(tracer) if name == "decode")
+    cuda = torch.autograd.DeviceType.CUDA
+    launches = [(e.start_ns(), e.end_ns(), e.name())
+                for e in dt.prof.profiler.kineto_results.events()
+                if e.device_type() != cuda and "LaunchKernel" in e.name()]
+    assert len(spans) == 6 and len(launches) >= 6 * cfg.num_layers
+    starts = [s for s, _ in spans]
+    outside = []
+    for s, t, name in launches:
+        i = bisect.bisect_right(starts, s) - 1
+        if i < 0 or t > spans[i][1]:
+            # how far it lies outside the nearest span, in microseconds
+            near = min(max(a - s, t - b, 0) for a, b in spans)
+            outside.append((round(near / 1e3, 3), name))
+    assert not outside, (len(outside), len(launches), max(outside))
 
 
 @pytest.mark.cuda
