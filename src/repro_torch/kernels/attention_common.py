@@ -166,6 +166,9 @@ def decode_smem_bytes(D: int, dtype: torch.dtype, split_keys: int) -> int:
 
 
 _COUNTERS: dict = {}
+#: buffers a larger call replaced in ``_COUNTERS``: a CUDA graph captured
+#: with one launches on it at every replay, so it is never freed
+_REPLACED: list = []
 
 
 def ticket_counters(kind: str, device: torch.device,
@@ -174,12 +177,29 @@ def ticket_counters(kind: str, device: torch.device,
     ``device``, at least ``n`` of them: zeroed once and reused, as every
     call leaves them at 0 again.  Each kind has its own buffer, so a decode
     call never meets a flash call's tickets; one buffer per device and
-    kind assumes the calls on a device run on one stream."""
+    kind assumes the calls on a device run on one stream.  A call that
+    needs more replaces the buffer and keeps the old one alive."""
     c = _COUNTERS.get((kind, device))
     if c is None or c.numel() < n:
+        if c is not None:
+            _REPLACED.append(c)
         c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _COUNTERS[(kind, device)] = c
     return c
+
+
+def reserve_counters(device: torch.device, Hq: int, Hkv: int,
+                     dtype: torch.dtype, decode_rows: int,
+                     flash_tokens: int) -> None:
+    """Grow both kinds' ticket counters on ``device`` now to cover a decode
+    call of ``decode_rows`` rows and a flash call of one row of
+    ``flash_tokens`` queries (Hq query heads over Hkv, ``dtype``'s row
+    tile), the counts :func:`launch_decode` and :func:`launch_flash` ask
+    for: done before a CUDA graph is captured, so the calls that follow
+    find the buffer the graph holds large enough and leave it in place."""
+    G = Hq // Hkv
+    decode_counters(device, decode_rows * Hkv * -(-G // ROWS))
+    flash_counters(device, Hkv * -(-flash_tokens * G // flash_rows(dtype)))
 
 
 def decode_counters(device: torch.device, n: int = 0) -> torch.Tensor:

@@ -73,3 +73,12 @@ def reset_launches() -> None:
 def launches() -> dict:
     """Launch counts of all six token-path kernels, by name."""
     return {k: n for mod in _MODULES for k, n in mod.LAUNCHES.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` ({name: n}, n may be negative) to the launch counts:
+    a CUDA graph's capture launches nothing, and each replay launches what
+    the capture counted."""
+    for mod in _MODULES:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] += counts.get(k, 0)

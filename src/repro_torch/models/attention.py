@@ -10,7 +10,8 @@ Two layouts:
   * contiguous: per-row rings ``k/v (B, cap, Hkv, D)``, ``pos (B, cap)``;
   * paged: one pool shared by every row, ``kp/vp (nb, bs, Hkv, D)``,
     ``ppos (nb, bs)``, read and written through a block table
-    ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}``.
+    ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}`` (a prefill chunk
+    may bring a ready ``"plan"`` in place of ``"reset"``).
 
 Where the port departs from the reference's array semantics:
 
@@ -147,27 +148,52 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                         resolve_device(device))
 
 
+def _pool_index(positions: torch.Tensor, pages: dict, block_size: int):
+    """(block, flat pool index) of each (row, position): position p of row
+    b lands in column ``(p // bs) % len[b]`` of its table row (the
+    block-granular ring), at offset ``p % bs`` of that block."""
+    bs = block_size
+    pos = positions.long()
+    ring = pages["len"].long().clamp(min=1)[:, None]
+    col = torch.div(pos, bs, rounding_mode="floor") % ring          # (B,S)
+    blk = torch.gather(pages["tbl"].long(), 1, col)                 # (B,S)
+    return blk, blk * bs + pos % bs
+
+
 def paged_write_plan(positions: torch.Tensor, pages: dict, num_blocks: int,
                      block_size: int) -> dict:
     """Where ``paged_write`` lands: the same for every layer of one
     forward, so the model computes it once.
 
     Returns ``{"reset": block ids to invalidate, "src": kept entries of the
-    flattened (B*S) new K/V, "dst": their flat pool indices}``.  Position p
-    of row b lands in column ``(p // bs) % len[b]`` (the block-granular
-    ring).  Entries the reference drops — position < 0, a -1 table column —
-    are left out here."""
-    bs = block_size
+    flattened (B*S) new K/V, "dst": their flat pool indices}``.  Entries
+    the reference drops — position < 0, a -1 table column — are left out
+    here (a compaction, which waits for the card)."""
     tbl = pages["tbl"].long()
     own = (tbl >= 0) & (pages["reset"].long()[:, None] > 0)
-    pos = positions.long()
-    ring = pages["len"].long().clamp(min=1)[:, None]
-    col = torch.div(pos, bs, rounding_mode="floor") % ring          # (B,S)
-    blk = torch.gather(tbl, 1, col)                                 # (B,S)
-    flat = (blk * bs + pos % bs).reshape(-1)
-    ok = ((pos >= 0) & (blk >= 0)).reshape(-1)
+    blk, flat = _pool_index(positions, pages, block_size)
+    ok = ((positions.long() >= 0) & (blk >= 0)).reshape(-1)
     src = torch.nonzero(ok).reshape(-1)
-    return {"reset": tbl[own], "src": src, "dst": flat[src]}
+    return {"reset": tbl[own], "src": src, "dst": flat.reshape(-1)[src]}
+
+
+def paged_chunk_plan(positions: torch.Tensor, pages: dict,
+                     block_size: int) -> dict:
+    """The write plan of a paged prefill chunk (``pages`` without
+    ``reset``): every entry lands, since its positions are >= 0 and its
+    table row holds the slot's own blocks, so there is no compaction and
+    no reset, and nothing waits for the card (a CUDA graph can hold it).
+    The recycled blocks are invalidated beforehand
+    (:func:`invalidate_blocks`)."""
+    return {"reset": None, "src": None,
+            "dst": _pool_index(positions, pages, block_size)[1].reshape(-1)}
+
+
+def invalidate_blocks(cache: dict, blocks: torch.Tensor) -> None:
+    """Mark every entry of ``blocks`` (int64 block ids) empty in one
+    layer's pool, in place and without waiting for the card: the reset of
+    a request's recycled blocks ahead of its first chunk."""
+    cache["ppos"].index_fill_(0, blocks, -1)
 
 
 def paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
@@ -175,18 +201,25 @@ def paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
     """Scatter S new entries per row into the pool through the block table,
     in place.  A row with ``reset > 0`` first invalidates every entry of
     its own blocks (recycled blocks carry the previous owner's positions).
-    ``pages["plan"]`` (from :func:`paged_write_plan`) is used when given."""
+    ``pages["plan"]`` (from :func:`paged_write_plan` or
+    :func:`paged_chunk_plan`) is used when given; a plan with no reset
+    writes none."""
     kp, vp, pp = cache["kp"], cache["vp"], cache["ppos"]
     nb, bs = kp.shape[0], kp.shape[1]
     plan = pages.get("plan")
     if plan is None:
         plan = paged_write_plan(positions, pages, nb, bs)
-    pp[plan["reset"]] = -1
+    if plan["reset"] is not None:
+        pp[plan["reset"]] = -1
     feat = kp.shape[2:]
     src, dst = plan["src"], plan["dst"]
-    kp.view((nb * bs,) + feat)[dst] = k.reshape((-1,) + feat)[src].to(kp.dtype)
-    vp.view((nb * bs,) + feat)[dst] = v.reshape((-1,) + feat)[src].to(vp.dtype)
-    pp.view(-1)[dst] = positions.reshape(-1)[src].to(torch.int32)
+    k, v = k.reshape((-1,) + feat), v.reshape((-1,) + feat)
+    pos = positions.reshape(-1)
+    if src is not None:
+        k, v, pos = k[src], v[src], pos[src]
+    kp.view((nb * bs,) + feat)[dst] = k.to(kp.dtype)
+    vp.view((nb * bs,) + feat)[dst] = v.to(vp.dtype)
+    pp.view(-1)[dst] = pos.to(torch.int32)
     return cache
 
 

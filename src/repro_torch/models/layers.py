@@ -160,12 +160,31 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int,
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim: int, theta: float,
-               device: Optional[torch.device] = None) -> torch.Tensor:
+#: {(head_dim, theta, device): frequencies} of :func:`rope_freqs` on a card
+_CARD_FREQS: dict = {}
+
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (torch.tensor(theta, dtype=torch.float32,
                                device=device) ** exps)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """(head_dim / 2,) fp32 ``1 / theta ** (2i / head_dim)``, theta rounded
+    to fp32 first.  On a card the vector is computed once per (head_dim,
+    theta, device) and kept: its upload of ``theta`` waits for the card,
+    twice a layer in every forward, and a CUDA graph cannot hold it.  The
+    kept tensor is shared; callers do not write to it."""
+    if device is None or torch.device(device).type != "cuda":
+        return _rope_freqs(head_dim, theta, device)
+    key = (head_dim, theta, torch.device(device))
+    freqs = _CARD_FREQS.get(key)
+    if freqs is None:
+        freqs = _CARD_FREQS[key] = _rope_freqs(head_dim, theta, device)
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -528,8 +528,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     """Returns (logits, new_caches, aux).
 
     ``caches`` is a list of per-layer dicts (contiguous rings, or paged
-    pools with ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}``); they
-    are updated in place and returned.  ``aux`` is the reference's MoE
+    pools with ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}``, whose
+    write plan is computed here unless ``pages`` brings its own ``"plan"``);
+    they are updated in place and returned.  ``aux`` is the reference's MoE
     auxiliary loss: the sum of every MoE layer's, an fp32 0 without
     one.  ``extras``: ``"frames"`` (encoder-decoder: the encoder runs only
     when they are given; decode steps omit them and read the cross K/V
@@ -542,7 +543,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         # position rows
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).repeat(B, 1)
-    if pages is not None and caches is not None:
+    if pages is not None and caches is not None and "plan" not in pages:
         # where the new K/V land is the same for every layer
         kp = caches[0]["kp"]
         pages = dict(pages, plan=attn_mod.paged_write_plan(

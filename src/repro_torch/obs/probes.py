@@ -14,12 +14,18 @@ shape at run time except what :func:`jit_cache_entries` counts:
     and uploaded at a shape's first kernel call;
   * the attention kernels' ticket counters
     (``kernels.attention_common.ticket_counters``), allocated at first
-    use per device and kernel kind.
+    use per device and kernel kind;
+  * the paged token engines' prefill CUDA graphs
+    (``serving.engine.GRAPH_SIGNATURES``), one entry per signature (arch,
+    run options, device, pool geometry, chunk width) captured in the
+    process, as the reference's jit caches hold one compile per traced
+    signature: a new engine of a known signature captures its own graphs
+    (they hold its pool) at its first admission, but adds no entry.
 
-The serving dispatch functions are plain closures made per engine
+The other serving dispatch functions are plain closures made per engine
 (``serving.engine.dispatch_fns``): nothing is cached per shape, so they
-add nothing.  On the CPU every wrapper takes its plain version and none of
-these is built, so the count stays 0.
+add nothing.  On the CPU every wrapper takes its plain version, no graph
+is captured and none of these is built, so the count stays 0.
 
 :func:`register_runtime_gauges` wires the probe (plus dispatch/backlog
 readings) into a :class:`~repro_torch.obs.metrics.MetricsRegistry` as
@@ -44,9 +50,10 @@ def jit_cache_entries() -> int:
     from repro_torch.kernels import attention_common as ac
     from repro_torch.kernels import build
     from repro_torch.kernels import vision_ops as vk
+    from repro_torch.serving import engine
     return (build.load.cache_info().currsize
             + vk._device_tables.cache_info().currsize
-            + len(ac._COUNTERS))
+            + len(ac._COUNTERS) + len(engine.GRAPH_SIGNATURES))
 
 
 def register_runtime_gauges(metrics: MetricsRegistry,
@@ -57,8 +64,9 @@ def register_runtime_gauges(metrics: MetricsRegistry,
     reflects the current state, with zero per-tick cost."""
     metrics.gauge(
         "jit_cache_entries",
-        "kernel libraries, shape tables and ticket buffers built at first "
-        "use (growth after warmup = a build mid-run)",
+        "kernel libraries, shape tables, ticket buffers and prefill graph "
+        "signatures built at first use (growth after warmup = a build "
+        "mid-run)",
     ).set_function(jit_cache_entries)
     if gw is None:
         return

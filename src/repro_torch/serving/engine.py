@@ -43,12 +43,13 @@ its token embeddings alone.
 The reference compiles four jitted dispatch functions, shared by every
 engine of one (cfg, opts, sample); PyTorch runs eagerly, so here they are
 plain closures (:func:`dispatch_fns`).  Sampling stays inside them: one
-host fetch of the sampled ids per tick.  Nothing is cached per shape,
-so the engine has no counterpart of the reference's
-``jit_cache_entries``: the simulator's recompile invariant counts the
-port's first-use builds instead (``obs.probes.jit_cache_entries``: kernel
+host fetch of the sampled ids per tick.  A paged engine on the card
+replays its prefill chunks from CUDA graphs, one per chunk width
+(:class:`PrefillGraphs`), captured at its first admission; every other
+dispatch runs eagerly.  The simulator's recompile invariant counts the
+port's first-use builds (``obs.probes.jit_cache_entries``: kernel
 libraries, the vision kernels' shape tables, the attention kernels'
-ticket buffers).
+ticket buffers, the prefill graphs' signatures).
 
 On the card, attention runs through the hand-written kernels when
 ``opts.use_kernels`` is set; inactive slots are mirrored exactly: they keep
@@ -71,6 +72,9 @@ from repro_torch.core.engine_core import (INNER, OUTER, BlockPool,
 from repro_torch.core.telemetry import Ledger, SegmentRecord
 from repro_torch.device import resolve_device
 from repro_torch.events.envelope import DEADLINE_MISS, TOKEN_DONE
+from repro_torch.kernels import attention_common as ac
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
 
@@ -138,8 +142,15 @@ def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
                             reset):
         # paged: the chunk writes into the SHARED pool through this slot's
         # table row (B = 1); reset > 0 on the first chunk invalidates
-        # recycled blocks' stale positions
-        pages = {"tbl": tbl, "len": tlen, "reset": reset}
+        # recycled blocks' stale positions.  reset None: the blocks were
+        # invalidated beforehand (attention.invalidate_blocks) and every
+        # entry lands, a plan with no host sync (the CUDA graphs' form)
+        pages = {"tbl": tbl, "len": tlen}
+        if reset is None:
+            pages["plan"] = attn_mod.paged_chunk_plan(
+                positions, pages, caches[0]["kp"].shape[1])
+        else:
+            pages["reset"] = reset
         logits, caches, _ = T.forward(cfg, params, tokens,
                                       positions=positions, caches=caches,
                                       pages=pages, opts=opts)
@@ -157,6 +168,131 @@ def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
     return {"prefill": prefill_chunk, "decode": decode,
             "paged_prefill": paged_prefill_chunk,
             "paged_decode": paged_decode}
+
+
+#: what the prefill graphs captured in this process were captured for:
+#: (cfg, opts, device, pool geometry, width), one entry per distinct
+#: signature, as the reference's jit caches hold one compile per traced
+#: signature (``obs.probes.jit_cache_entries``)
+GRAPH_SIGNATURES: set = set()
+
+
+class PrefillGraphs:
+    """A paged engine's prefill chunk forward as CUDA graphs, one per chunk
+    width (1, 2, 4, ... up to its widest chunk), all captured at once
+    (:meth:`capture`, at the engine's first admission) and replayed for
+    every chunk after (:meth:`run`).
+
+    Every graph reads one set of static inputs: the chunk's tokens and
+    positions (the first ``w`` columns of a (1, widest) pair, copied card
+    to card from the uploaded prompt) and the slot's table row and ring
+    length (one int32 row, uploaded once an admission by :meth:`begin`).
+    Nothing inside a graph waits for the host: RoPE's frequencies are kept
+    on the card (``layers.rope_freqs``), the write plan takes every entry
+    (``attention.paged_chunk_plan``), and :meth:`begin` invalidates the
+    slot's recycled blocks before the first replay.  The graphs run the
+    eager chunk's kernels (the flash kernel, the decode kernel at width
+    1), whose ticket counters are grown to the engine's largest call
+    before capture (``attention_common.reserve_counters``)."""
+
+    OWNER = "<prefill graph capture>"
+
+    def __init__(self, eng: "ServeEngine") -> None:
+        self.eng = eng
+        top = min(eng.prefill_chunk, eng.capacity,
+                  min(eng.table_cols, eng.num_blocks) * eng.block_size)
+        self.widths = [1 << i for i in range(top.bit_length())]
+        #: {width: (graph, its sampled token, its kernel launches)}
+        self.graphs: Dict[int, tuple] = {}
+
+    def forward(self, w: int) -> torch.Tensor:
+        """The chunk forward of width ``w`` on the static inputs, as each
+        graph holds it; returns the sampled token."""
+        eng, cols = self.eng, self.eng.table_cols
+        first, _ = eng._fns["paged_prefill"](
+            eng.params, eng.caches, self.tok[:, :w], self.pos[:, :w],
+            self.pages[:, :cols], self.pages[0, cols:], None)
+        return first
+
+    @torch.no_grad()
+    def capture(self) -> None:
+        """Warm every width up eagerly on a side stream, then capture each
+        into a graph of one shared memory pool.  The chunks write into
+        blocks borrowed from the engine's pool and returned after, in the
+        order that leaves its free list as it was, so no slot's KV is
+        touched."""
+        eng = self.eng
+        cfg, dev, top = eng.cfg, eng.device, self.widths[-1]
+        blocks = eng.block_pool.alloc(-(-top // eng.block_size), self.OWNER)
+        try:
+            self.static_inputs(blocks)
+            if eng.opts.use_kernels:
+                # keyed as the launches key them: by a tensor's device
+                ac.reserve_counters(self.pages.device, cfg.num_heads,
+                                    cfg.num_kv_heads,
+                                    getattr(torch, cfg.compute_dtype),
+                                    decode_rows=eng.slots, flash_tokens=top)
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for w in self.widths:
+                    self.forward(w)
+            main.wait_stream(side)
+            pool = torch.cuda.graph_pool_handle()
+            for w in self.widths:
+                before = kops.launches()
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, pool=pool):
+                    first = self.forward(w)
+                launched = {k: m - before[k]
+                            for k, m in kops.launches().items()
+                            if m != before[k]}
+                kops.add_launches({k: -m for k, m in launched.items()})
+                self.graphs[w] = (g, first, launched)
+                GRAPH_SIGNATURES.add((cfg, eng.opts, str(self.pages.device),
+                                      eng.num_blocks, eng.block_size,
+                                      eng.table_cols, w))
+        finally:
+            eng.block_pool.free(blocks[::-1], self.OWNER)
+
+    def static_inputs(self, blocks: List[int]) -> None:
+        """The graphs' inputs, on the engine's device: tokens and positions
+        0.. of the widest chunk, and a table row of ``blocks`` (a ring of
+        as many columns)."""
+        eng = self.eng
+        cols, top = eng.table_cols, self.widths[-1]
+        row = np.full((1, cols + 1), -1, np.int32)
+        row[0, :len(blocks)] = blocks
+        row[0, cols] = len(blocks)
+        self.pages = torch.from_numpy(row).to(eng.device)
+        self.tok = torch.zeros((1, top), dtype=torch.long, device=eng.device)
+        self.pos = torch.arange(top, dtype=torch.int32,
+                                device=eng.device)[None]
+
+    def begin(self, slot: int) -> None:
+        """An admission's static inputs: the slot's table row and ring
+        length (one upload), and its blocks, the row's first ``len``
+        columns, invalidated in every layer's pool."""
+        eng = self.eng
+        n = int(eng._tbl_len[slot])
+        self.pages.copy_(torch.from_numpy(
+            np.append(eng._tbl[slot], n).astype(np.int32))[None])
+        blocks = self.pages[0, :n].long()
+        for cache in eng.caches:
+            attn_mod.invalidate_blocks(cache, blocks)
+
+    def run(self, tokens: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+        """Replay the graph of the chunk's width on ``tokens`` and
+        ``positions`` (1, w), card tensors; returns its sampled token."""
+        w = tokens.shape[1]
+        self.tok[:, :w].copy_(tokens)
+        self.pos[:, :w].copy_(positions)
+        g, first, launched = self.graphs[w]
+        g.replay()
+        kops.add_launches(launched)
+        return first
 
 
 class ServeEngine(EngineCore):
@@ -250,6 +386,13 @@ class ServeEngine(EngineCore):
         self.token_cost_ms = self.unit_cost_ms
         self.tokens_generated = 0
         self._fns = dispatch_fns(cfg, opts, self.sample)
+        # a paged engine on the card replays its prefill chunks from CUDA
+        # graphs, captured at its first admission
+        self._graphs = (PrefillGraphs(self)
+                        if self.paged and self.device.type == "cuda"
+                        else None)
+        self.prefill_graph_replays = 0
+        self.prefill_eager_chunks = 0
 
     @property
     def active(self) -> List[Optional[Request]]:
@@ -306,8 +449,11 @@ class ServeEngine(EngineCore):
 
         Phase spans: ``prefill.upload`` (the prompt, its positions and the
         slot's table row or fresh cache row; paged, each chunk's ``reset``
-        flag again), ``prefill.forward`` per chunk (``tokens`` its width),
-        ``prefill.read`` (the first token's fetch)."""
+        flag again, or, replayed from graphs, the recycled blocks'
+        invalidation once), ``prefill.forward`` per chunk (``tokens`` its
+        width, ``graph=1`` where it is a replay), ``prefill.read`` (the
+        first token's fetch)."""
+        graphs = self._graphs
         with self.tspan("prefill.upload"):
             toks = self._dev(req.tokens, torch.long)[None, :]
             S = int(toks.shape[1])
@@ -319,20 +465,27 @@ class ServeEngine(EngineCore):
                 # one scatter mapping to the same pool entry would race)
                 max_chunk = min(max_chunk,
                                 int(self._tbl_len[slot]) * self.block_size)
-                tbl = self._dev(self._tbl[slot: slot + 1])
-                tlen = self._dev(self._tbl_len[slot: slot + 1])
+                if graphs is not None:
+                    graphs.begin(slot)
+                else:
+                    tbl = self._dev(self._tbl[slot: slot + 1])
+                    tlen = self._dev(self._tbl_len[slot: slot + 1])
             else:
                 max_chunk = min(max_chunk, self._dense_ring)
                 row = T.init_caches(self.cfg, 1, self.capacity,
                                     device=self.device)
         max_chunk = 1 << (max_chunk.bit_length() - 1)
         first = None
-        c0 = 0
+        c0 = chunks = 0
         while c0 < S:
             chunk = max_chunk
             while chunk > S - c0:
                 chunk //= 2
-            if self.paged:
+            if graphs is not None:
+                with self.tspan("prefill.forward", tokens=chunk, graph=1):
+                    first = graphs.run(toks[:, c0: c0 + chunk],
+                                       pos[:, c0: c0 + chunk])
+            elif self.paged:
                 with self.tspan("prefill.upload"):
                     reset = self._dev([1 if c0 == 0 else 0])
                 with self.tspan("prefill.forward", tokens=chunk):
@@ -345,15 +498,38 @@ class ServeEngine(EngineCore):
                         self.params, row, toks[:, c0: c0 + chunk],
                         pos[:, c0: c0 + chunk], c0)
             c0 += chunk
+            chunks += 1
+        if graphs is not None:
+            self.prefill_graph_replays += chunks
+            self._count("serve_prefill_graph_replays_total",
+                        "prefill chunks replayed from a CUDA graph", chunks)
+        else:
+            self.prefill_eager_chunks += chunks
+            self._count("serve_prefill_eager_chunks_total",
+                        "prefill chunks run eagerly", chunks)
         if not self.paged:
             self.caches = insert_row(self.caches, row, slot)
         with self.tspan("prefill.read"):
             return int(first)
 
+    def _count(self, name: str, what: str, n: int) -> None:
+        """Add ``n`` to this engine's counter ``name`` where metrics are
+        attached."""
+        if self.metrics is not None:
+            self.metrics.counter(name, what, ("engine",)).labels(
+                engine=self.name).inc(n)
+
     def _admit(self, slot: int, req: Request) -> None:
         """Allocate KV (paged: may raise :class:`BlockPoolExhausted` BEFORE
-        any compute — the caller backpressures), chunk-prefill, bind."""
+        any compute — the caller backpressures), chunk-prefill, bind.  The
+        first admission of a paged engine on the card captures its prefill
+        graphs first, while no slot holds a block."""
         S = int(np.shape(req.tokens)[0])
+        if self._graphs is not None and not self._graphs.graphs:
+            self._graphs.capture()
+            self._count("serve_prefill_graphs_total",
+                        "prefill chunk widths captured as CUDA graphs",
+                        len(self._graphs.graphs))
         if self.paged:
             ncols = self._blocks_needed(S, req.max_new_tokens)
             blocks = self.block_pool.alloc(ncols, req.rid)
@@ -521,7 +697,9 @@ class ServeEngine(EngineCore):
         return len(self.queue) + sum(r is not None for r in self.active)
 
     def stats(self) -> dict:
-        """Serving-loop telemetry (mirrors the vision engine's)."""
+        """Serving-loop telemetry (mirrors the vision engine's), with the
+        port's prefill counts: chunks replayed from graphs, chunks run
+        eagerly, and the widths captured."""
         out = {
             "ticks": self.ticks,
             "tokens_generated": self.tokens_generated,
@@ -529,6 +707,10 @@ class ServeEngine(EngineCore):
             "token_cost_ms": self.token_cost_ms.get(0.0),
             "tick_cost_ms": self.tick_cost_ms.get(0.0),
             "paged": self.paged,
+            "prefill_graph_replays": self.prefill_graph_replays,
+            "prefill_eager_chunks": self.prefill_eager_chunks,
+            "prefill_graphs": (len(self._graphs.graphs)
+                               if self._graphs is not None else 0),
         }
         if self.paged:
             out["kv_blocks_used"] = self.block_pool.used_blocks

@@ -240,8 +240,9 @@ def _warm_token_kernels(scenario: Scenario, device: torch.device,
     ``ServeEngine`` per distinct replica geometry, fed a prompt of
     ``2 * prefill_chunk - 1`` tokens — its descending power-of-two
     decomposition dispatches EVERY chunk width a later admission can —
-    plus a short decode, so the attention libraries and their ticket
-    buffers exist before the scenario's warmup tick."""
+    plus a short decode, so the attention libraries, their ticket buffers
+    and (paged, on the card) the prefill graphs' signatures exist before
+    the scenario's warmup tick."""
     if not scenario.token_replicas:
         return
     from repro_torch.serving.engine import Request, ServeEngine

@@ -1563,3 +1563,157 @@ def test_collectives_pipeline_and_replica_mesh_on_one_card(dev, nccl_world):
     if n < 2:
         with pytest.raises(ValueError, match=f"only {n} available"):
             FleetStep(engines, mode="shard_map")
+
+
+# ---------------------------------------------------------------------------
+# the paged prefill chunk's CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _graph_engine(cfg, params, dev, **kw):
+    args = dict(slots=2, cache_capacity=512, prefill_chunk=128, block_size=16,
+                paged=True, opts=RunOpts(use_kernels=True), device=dev,
+                clock=VirtualClock(rates={TOKEN: 0.002, PREFILL: 0.0005}))
+    args.update(kw)
+    return ServeEngine(cfg, params, **args)
+
+
+def _pool(caches):
+    return [{k: t.clone() for k, t in c.items()} for c in caches]
+
+
+@pytest.mark.cuda
+def test_prefill_graphs_match_the_eager_chunk_at_every_width(dev):
+    """starcoder2-3b's widths (two layers, bf16): for every chunk width
+    1-128, replaying the width's graph on a slot of recycled blocks (stale
+    positions and K/V) whose ring of 12 columns the chunk wraps gives the
+    eager ``paged_prefill`` dispatch's token and pool (every position, and
+    K/V bit for bit: the same kernels run); the replay waits for nothing
+    (``set_sync_debug_mode("error")``)."""
+    import dataclasses
+    from repro_torch.serving.engine import dispatch_fns
+    cfg = dataclasses.replace(get_arch("starcoder2-3b"), num_layers=2)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    eng = _graph_engine(cfg, params, dev)
+    g = eng._graphs
+    g.capture()
+    assert sorted(g.graphs) == g.widths == [1 << i for i in range(8)]
+    rng = np.random.default_rng(0)
+    blocks = eng.block_pool.alloc(12, "slot")
+    eng._tbl[0, :12] = blocks
+    eng._tbl_len[0] = 12
+    for c in eng.caches:
+        c["ppos"][blocks] = torch.from_numpy(rng.integers(
+            0, 4000, (12, 16)).astype(np.int32)).to(dev)
+        c["kp"][blocks] = torch.randn_like(c["kp"][blocks])
+        c["vp"][blocks] = torch.randn_like(c["vp"][blocks])
+    stale = _pool(eng.caches)
+    tbl = torch.from_numpy(eng._tbl[:1]).to(dev)
+    tlen = torch.from_numpy(eng._tbl_len[:1]).to(dev)
+    reset = torch.ones(1, dtype=torch.int32, device=dev)
+    eager = dispatch_fns(cfg, eng.opts, eng.sample)["paged_prefill"]
+    for w in g.widths:
+        c0 = 150                            # the ring holds 192 entries
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, w))).to(dev)
+        pos = torch.arange(c0, c0 + w, dtype=torch.int32, device=dev)[None]
+        want_pool = _pool(stale)
+        want, _ = eager(params, want_pool, tok, pos, tbl, tlen, reset)
+        for c, s in zip(eng.caches, stale):
+            for k in c:
+                c[k].copy_(s[k])
+        g.begin(0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = g.run(tok, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert int(got) == int(want), w
+        for c, s in zip(eng.caches, want_pool):
+            for k in c:
+                assert torch.equal(c[k], s[k]), (w, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,use_kernels", [
+    ("starcoder2-3b", True), ("granite-moe-1b-a400m", True),
+    ("internvl2-2b", True), ("starcoder2-3b", False)])
+def test_graph_engine_serves_the_eager_engines_tokens(dev, no_tf32, arch,
+                                                      use_kernels):
+    """Reduced paged archs (fp32; starcoder2-3b with a window of 129, a
+    ring of 9 columns of 16 that the 300-token prompt wraps; granite's MoE
+    layers; the VLM; the plain attention), chunks up to 128: prompts that
+    take every width give the same tokens through the graphs as through
+    the eager engine (no graphs).  The 8 widths are captured at the first
+    admission and never again; every chunk is a replay."""
+    import dataclasses
+    from repro_torch.obs.probes import jit_cache_entries
+    from repro_torch.serving import engine as serving
+    cfg = get_arch(arch).reduced()
+    if cfg.window:
+        cfg = dataclasses.replace(cfg, window=129)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(1)
+    lens = (255, 300, 37, 1, 130)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    streams, stats = {}, {}
+    for side in ("graphs", "eager"):
+        eng = _graph_engine(cfg, params, dev,
+                            opts=RunOpts(use_kernels=use_kernels))
+        if side == "eager":
+            eng._graphs = None
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=f"r{i}", tokens=p, max_new_tokens=8))
+        if side == "graphs":
+            n0 = len(serving.GRAPH_SIGNATURES)
+            assert eng.stats()["prefill_graphs"] == 0
+            eng.step()
+            made = dict(eng._graphs.graphs)
+            assert eng.stats()["prefill_graphs"] == len(made) == 8
+            assert len(serving.GRAPH_SIGNATURES) == n0 + 8
+            entries = jit_cache_entries()
+        streams[side] = {r.rid: r.generated for r in eng.run()}
+        stats[side] = eng.stats()
+        if side == "graphs":
+            assert all(eng._graphs.graphs[w] is made[w] for w in made)
+            assert jit_cache_entries() == entries
+    assert streams["graphs"] == streams["eager"]
+    chunks = sum(n // 128 + bin(n % 128).count("1") for n in lens)
+    assert (stats["graphs"]["prefill_graph_replays"],
+            stats["graphs"]["prefill_eager_chunks"]) == (chunks, 0)
+    assert (stats["eager"]["prefill_graph_replays"],
+            stats["eager"]["prefill_eager_chunks"]) == (0, chunks)
+
+
+@pytest.mark.cuda
+def test_decode_after_capture_leaves_the_graphs_ticket_buffers(dev):
+    """The graphs hold the ticket counters they were captured with: a
+    decode at B = 256 after the capture (256 slots) leaves both buffers in
+    place, and a replay after it still gives the eager chunk's token."""
+    from repro_torch.kernels import attention_common as ac
+    cfg = get_arch("starcoder2-3b").reduced()
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    small = dict(cache_capacity=64, prefill_chunk=16, block_size=4)
+    eng = _graph_engine(cfg, params, dev, slots=256, **small)
+    eng._graphs.capture()
+    held = {kind: t for (kind, d), t in ac._COUNTERS.items()
+            if d.type == "cuda"}
+    assert set(held) == {"decode", "flash"}
+    rng = np.random.default_rng(2)
+    for i in range(256):
+        eng.submit(Request(rid=f"r{i}", tokens=rng.integers(0, 256, 9),
+                           max_new_tokens=4))
+    assert eng.step() == 256
+    eng.run()
+    for (kind, d), t in ac._COUNTERS.items():
+        if d.type == "cuda":
+            assert t is held[kind], kind
+    prompt = rng.integers(0, 256, 7)
+    firsts = []
+    for e in (eng, _graph_engine(cfg, params, dev, slots=1, **small)):
+        if e is not eng:
+            e._graphs = None
+        e.submit(Request(rid="last", tokens=prompt, max_new_tokens=1))
+        e.run()
+        firsts.append([r.generated for r in e.finished if r.rid == "last"])
+    assert firsts[0] == firsts[1] and len(firsts[0]) == 1
