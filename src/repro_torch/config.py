@@ -1,10 +1,10 @@
 """Run configuration for the port.
 
 ``EDAConfig`` is the paper's deadline/early-stop technique, read by both
-engines.  ``ModelConfig`` (with ``MoEConfig`` and ``MLAConfig``) describes
-a language model the token engine serves; architectures register
-themselves in ``repro_torch.configs`` and are looked up with
-:func:`get_arch`.  ``ParallelConfig`` is the reference's, field for field
+engines.  ``ModelConfig`` (with ``MoEConfig``, ``MLAConfig`` and YaRN's
+``RopeScaling``) describes a language model the token engine serves;
+architectures register themselves in ``repro_torch.configs`` and are
+looked up with :func:`get_arch`.  ``ParallelConfig`` is the reference's, field for field
 and default for default: the mesh fields (``data_axes``, ``model_axis``,
 ``fsdp``, ``fsdp_axes``, ``ep``, ``sp``, ``attn_batch_sharded``) feed
 ``repro_torch.sharding.rules``; ``train.train_step`` reads ``grad_accum``,
@@ -17,6 +17,7 @@ says which (arch, shape) cells do not run.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
@@ -40,10 +41,41 @@ class MoEConfig:
     expert_ff: int = 0              # per-expert intermediate size
     first_dense_layers: int = 0     # leading layers that use the dense MLP
     router_aux_coef: float = 0.001  # load-balance aux loss coefficient
+    # The port's own fields, which the reference lacks: kept out of the
+    # repr, so that a config at their defaults reads as the reference's.
+    # top-k gates renormalised to sum to 1 (False: the raw probabilities)
+    norm_topk_prob: bool = field(default=True, repr=False)
+    # expert capacity C = max(int(K * N * factor / E), 4) of a call over N
+    # rows (GShard); None serves dropless, C = N
+    capacity_factor: Optional[float] = field(default=1.25, repr=False)
 
     @property
     def enabled(self) -> bool:
         return self.num_experts > 0
+
+
+@dataclass(frozen=True)
+class RopeScaling:
+    """YaRN's scaled rotary frequencies (arXiv:2309.00071, as DeepSeek-V2
+    configures it): dimensions that turn fewer than ``beta_slow`` times
+    over ``original_max_position`` are slowed by ``factor``, those that
+    turn more than ``beta_fast`` times are kept, a linear ramp between.
+    MLA's softmax scale gains ``yarn_mscale(factor, mscale_all_dim) ** 2``
+    and the rotation ``mscale(mscale) / mscale(mscale_all_dim)``."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature ``0.1 * mscale * ln(factor) + 1`` (1 at
+    no scaling)."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
 
 
 @dataclass(frozen=True)
@@ -77,6 +109,8 @@ class ModelConfig:
     window: int = 0                 # sliding window size (tokens)
     rope: bool = True
     rope_theta: float = 10_000.0
+    # YaRN (the port's own field: out of the repr, as MoEConfig's)
+    rope_scaling: Optional[RopeScaling] = field(default=None, repr=False)
     qkv_bias: bool = False
     o_bias: bool = False
 

@@ -7,10 +7,15 @@ the dense attention stacks ``starcoder2-3b``, ``starcoder2-7b``,
 ``granite-moe-1b-a400m``, the MLA + MoE ``deepseek-v2-236b``, the hybrid
 RG-LRU + local-attention ``recurrentgemma-9b``, the mLSTM + sLSTM
 ``xlstm-350m``, the encoder-decoder ``whisper-base`` and the VLM
-``internvl2-2b``.
+``internvl2-2b``.  The port adds one arch of its own, which the
+reference's registry lacks: ``deepseek-v2-lite`` (MLA + MoE, YaRN rope,
+dropless routing with raw top-k gates), served paged at full size by the
+benchmark's ``serve_dsv2_lite_batch``.  ``ASSIGNED`` stays the
+reference's ten.
 """
 from repro_torch.configs import command_r_plus_104b  # noqa: F401
 from repro_torch.configs import deepseek_v2_236b  # noqa: F401
+from repro_torch.configs import deepseek_v2_lite  # noqa: F401
 from repro_torch.configs import granite_moe_1b_a400m  # noqa: F401
 from repro_torch.configs import internvl2_2b  # noqa: F401
 from repro_torch.configs import qwen1_5_32b  # noqa: F401

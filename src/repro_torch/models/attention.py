@@ -9,7 +9,8 @@ Two layouts:
 
   * contiguous: per-row rings ``k/v (B, cap, Hkv, D)``, ``pos (B, cap)``;
   * paged: one pool shared by every row, ``kp/vp (nb, bs, Hkv, D)``,
-    ``ppos (nb, bs)``, read and written through a block table
+    ``ppos (nb, bs)`` (MLA's latent pool: ``c``/``k_rope``, ``ppos``,
+    written by the same plans), read and written through a block table
     ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}`` (a prefill chunk
     may bring a ready ``"plan"`` in place of ``"reset"``).
 
@@ -204,21 +205,33 @@ def paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
     ``pages["plan"]`` (from :func:`paged_write_plan` or
     :func:`paged_chunk_plan`) is used when given; a plan with no reset
     writes none."""
-    kp, vp, pp = cache["kp"], cache["vp"], cache["ppos"]
-    nb, bs = kp.shape[0], kp.shape[1]
+    return paged_write_leaves(cache, {"kp": k, "vp": v}, positions, pages)
+
+
+def paged_write_leaves(cache: dict, new: dict, positions: torch.Tensor,
+                       pages: dict) -> dict:
+    """:func:`paged_write` of any pool: ``new`` maps each of the pool's
+    feature leaves (nb, bs, ...) to its (B, S, ...) entries, written with
+    their positions into ``ppos`` (MLA's latent pool holds ``c`` and
+    ``k_rope``)."""
+    pp = cache["ppos"]
+    nb, bs = pp.shape
     plan = pages.get("plan")
     if plan is None:
         plan = paged_write_plan(positions, pages, nb, bs)
     if plan["reset"] is not None:
         pp[plan["reset"]] = -1
-    feat = kp.shape[2:]
     src, dst = plan["src"], plan["dst"]
-    k, v = k.reshape((-1,) + feat), v.reshape((-1,) + feat)
     pos = positions.reshape(-1)
     if src is not None:
-        k, v, pos = k[src], v[src], pos[src]
-    kp.view((nb * bs,) + feat)[dst] = k.to(kp.dtype)
-    vp.view((nb * bs,) + feat)[dst] = v.to(vp.dtype)
+        pos = pos[src]
+    for name, t in new.items():
+        pool = cache[name]
+        feat = pool.shape[2:]
+        t = t.reshape((-1,) + feat)
+        if src is not None:
+            t = t[src]
+        pool.view((nb * bs,) + feat)[dst] = t.to(pool.dtype)
     pp.view(-1)[dst] = pos.to(torch.int32)
     return cache
 

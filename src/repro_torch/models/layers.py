@@ -10,16 +10,18 @@ frameworks' defaults differ, the port follows the reference:
   * ``jnp.var`` is the population variance (``correction=0``); the norm
     runs in fp32 and casts back to the input's dtype.
   * RoPE rotates the two split halves of the head dim (not interleaved
-    pairs), with frequencies computed in fp32.
+    pairs), with frequencies computed in fp32; YaRN (the port's own,
+    ``config.RopeScaling``) blends them as DeepSeek-V2 does.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, RopeScaling, yarn_mscale
 from repro_torch.models.param import P
 from repro_torch.sharding.gathered import is_dtensor, vocab_parallel_lookup
 
@@ -160,7 +162,8 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int,
 # ---------------------------------------------------------------------------
 
 
-#: {(head_dim, theta, device): frequencies} of :func:`rope_freqs` on a card
+#: {(head_dim, theta, scaling, device): frequencies} of :func:`rope_freqs`
+#: on a card
 _CARD_FREQS: dict = {}
 
 
@@ -171,31 +174,84 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
                                device=device) ** exps)
 
 
+def yarn_correction_range(head_dim: int, theta: float,
+                          scaling: RopeScaling) -> tuple:
+    """(low, high): YaRN's ramp runs over frequency indices low..high of
+    the ``head_dim / 2``; index i turns ``max_position / (2 pi theta **
+    (2i / head_dim))`` times over the original context.  DeepSeek-V2's
+    ``yarn_find_correction_range``: the index of ``beta_fast`` turns
+    floored, of ``beta_slow`` ceiled, clipped to the dims."""
+    def dim(turns):
+        return (head_dim * math.log(scaling.original_max_position
+                                    / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = math.floor(dim(scaling.beta_fast))
+    high = math.ceil(dim(scaling.beta_slow))
+    return max(low, 0), min(high, head_dim - 1)
+
+
+def _yarn_freqs(head_dim: int, theta: float, scaling: RopeScaling,
+                device) -> torch.Tensor:
+    """YaRN's blend (DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``): the
+    plain frequencies below index ``low``, those over ``factor`` above
+    ``high``, a linear ramp between, in fp32."""
+    extra = _rope_freqs(head_dim, theta, device)
+    inter = extra / scaling.factor
+    low, high = yarn_correction_range(head_dim, theta, scaling)
+    if low == high:
+        high += 0.001                   # the published guard
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def rope_attention_factor(scaling: Optional[RopeScaling]) -> float:
+    """The factor YaRN puts on cos and sin: ``mscale(mscale) /
+    mscale(mscale_all_dim)`` (1 without scaling, and for DeepSeek-V2,
+    whose two are equal)."""
+    if scaling is None:
+        return 1.0
+    return (yarn_mscale(scaling.factor, scaling.mscale)
+            / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+
+
 def rope_freqs(head_dim: int, theta: float,
-               device: Optional[torch.device] = None) -> torch.Tensor:
+               device: Optional[torch.device] = None,
+               scaling: Optional[RopeScaling] = None) -> torch.Tensor:
     """(head_dim / 2,) fp32 ``1 / theta ** (2i / head_dim)``, theta rounded
-    to fp32 first.  On a card the vector is computed once per (head_dim,
-    theta, device) and kept: its upload of ``theta`` waits for the card,
-    twice a layer in every forward, and a CUDA graph cannot hold it.  The
-    kept tensor is shared; callers do not write to it."""
+    to fp32 first; YaRN's blend of them where ``scaling`` is given.  On a
+    card the vector is computed once per (head_dim, theta, scaling,
+    device) and kept: its upload of ``theta`` waits for the card, twice a
+    layer in every forward, and a CUDA graph cannot hold it.  The kept
+    tensor is shared; callers do not write to it."""
+    def make():
+        if scaling is None:
+            return _rope_freqs(head_dim, theta, device)
+        return _yarn_freqs(head_dim, theta, scaling, device)
     if device is None or torch.device(device).type != "cuda":
-        return _rope_freqs(head_dim, theta, device)
-    key = (head_dim, theta, torch.device(device))
+        return make()
+    key = (head_dim, theta, scaling, torch.device(device))
     freqs = _CARD_FREQS.get(key)
     if freqs is None:
-        freqs = _CARD_FREQS[key] = _rope_freqs(head_dim, theta, device)
+        freqs = _CARD_FREQS[key] = make()
     return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, scaling: Optional[RopeScaling] = None
+               ) -> torch.Tensor:
     """x: (..., S, H, D); positions: (..., S) int.  Rotates the split
-    halves ``x[..., :D/2]`` and ``x[..., D/2:]``, in fp32."""
+    halves ``x[..., :D/2]`` and ``x[..., D/2:]``, in fp32; YaRN's
+    frequencies and cos/sin factor where ``scaling`` is given."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                    # (d/2,)
+    freqs = rope_freqs(d, theta, x.device, scaling)           # (d/2,)
     ang = positions[..., None].float() * freqs                # (..., S, d/2)
     sin = torch.sin(ang)[..., None, :]                        # over heads
     cos = torch.cos(ang)[..., None, :]
+    factor = rope_attention_factor(scaling)
+    if factor != 1.0:
+        sin, cos = sin * factor, cos * factor
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

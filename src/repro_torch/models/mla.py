@@ -8,8 +8,10 @@ query/output so attention runs directly against the compressed cache
 
 Both run as plain torch operations in fp32 (no kernel: the reference's
 MLA reaches no Pallas kernel either), with the scale
-``1/sqrt(qk_head_dim)`` in fp32.  As in ``models/attention.py``, a decode
-write lands in the given cache IN PLACE:
+``1/sqrt(qk_head_dim)`` in fp32; YaRN (``cfg.rope_scaling``, the port's
+own) scales the rope and multiplies the scale by ``mscale ** 2``
+(DeepSeek-V2's ``softmax_scale``).  As in ``models/attention.py``, a
+decode write lands in the given cache IN PLACE:
 
   * a per-row ``cache_index`` tensor (continuous batching, S == 1) writes
     one ring row per batch row at ``cache_index[b] % cap`` (the reference
@@ -21,6 +23,17 @@ write lands in the given cache IN PLACE:
 A key is valid for a query when its position is >= 0 and <= the query's;
 a row with no valid key softmaxes its NEG_INF scores to uniform weights,
 as the reference's does.
+
+Paged (the port's own; the reference's MLA is contiguous only): a layer's
+block pool ``{"c" (nb, bs, kv_lora), "k_rope" (nb, bs, rope), "ppos" (nb,
+bs)}`` in the compute dtype, read and written through the engine's block
+table as the K/V pools of ``models/attention.py`` are (``pages``: the same
+write plans, so a prefill chunk needs no host sync and replays from a CUDA
+graph).  Decode and prefill chunks alike run the absorbed form over the
+row's gathered blocks, on compute-dtype operands: the latent products
+(scores, the weighted sum) keep fp32 results (cuBLAS's ``out_dtype`` on
+the card, no fp32 copy of the latents), the softmax runs in fp32, and the
+weights are rounded to the compute dtype for the weighted sum.
 """
 from __future__ import annotations
 
@@ -28,10 +41,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, yarn_mscale
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (DEFAULT_OPTS, NEG_INF, RunOpts,
-                                         _on_local_shards)
+                                         _on_local_shards, paged_write_leaves)
 from repro_torch.sharding.gathered import is_dtensor, local_rows
 from repro_torch.models.layers import apply_rope, dense, dense_params
 from repro_torch.models.param import P
@@ -75,7 +88,7 @@ def _project_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
         q = dense(p["wq"], x)
     q = q.reshape(B, S, cfg.num_heads, m.qk_head_dim)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, cfg.rope_scaling)
     return q_nope, q_rope
 
 
@@ -87,7 +100,7 @@ def _compress_kv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     c = _rmsnorm(c, p["kv_norm"])
     # shared (headless) rope key
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0, :]
+                        cfg.rope_theta, cfg.rope_scaling)[:, :, 0, :]
     return c, k_rope
 
 
@@ -110,6 +123,82 @@ def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int,
                 else torch.zeros(s, dtype=dt, device=dev))
             for k, (s, dt) in mla_cache_shapes(cfg, batch, capacity,
                                                dtype).items()}
+
+
+def mla_paged_cache_shapes(cfg: ModelConfig, num_blocks: int,
+                           block_size: int) -> dict:
+    """{name: (shape, dtype)} of one layer's latent block pool."""
+    m = cfg.mla
+    dt = getattr(torch, cfg.compute_dtype)
+    return {"c": ((num_blocks, block_size, m.kv_lora_rank), dt),
+            "k_rope": ((num_blocks, block_size, m.qk_rope_dim), dt),
+            "ppos": ((num_blocks, block_size), torch.int32)}
+
+
+def softmax_scale(cfg: ModelConfig) -> float:
+    """YaRN's ``mscale(factor, mscale_all_dim) ** 2`` (1 without it); the
+    contiguous path multiplies its fp32 ``1/sqrt(qk_head_dim)`` by it."""
+    r = cfg.rope_scaling
+    if r is None or not r.mscale_all_dim:
+        return 1.0
+    return yarn_mscale(r.factor, r.mscale_all_dim) ** 2
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched) with an fp32 result: compute-dtype operands,
+    fp32 products and sums (cuBLAS's ``out_dtype`` on the card; the CPU
+    has no such product and takes fp32 copies of the operands)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def paged_gather_latents(cache: dict, tbl: torch.Tensor):
+    """Each row's latents from the pool: (c (B, M*bs, kv_lora), k_rope
+    (B, M*bs, rope), positions (B, M*bs)); a -1 table column reads block 0
+    with positions -1 (``attention_common.paged_gather_plain``'s rule)."""
+    nb, bs = cache["ppos"].shape
+    B, M = tbl.shape
+    idx = tbl.long().clamp(0, nb - 1)
+    c = cache["c"][idx].reshape(B, M * bs, -1)
+    kr = cache["k_rope"][idx].reshape(B, M * bs, -1)
+    pos = torch.where(tbl[:, :, None] >= 0, cache["ppos"][idx],
+                      -1).reshape(B, M * bs)
+    return c, kr, pos
+
+
+def _paged_absorbed(cfg: ModelConfig, p: dict, q_nope: torch.Tensor,
+                    q_rope: torch.Tensor, cache: dict, pages: dict,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Absorbed attention of (B, S) queries over each row's blocks, on
+    compute-dtype operands (module docstring).  Returns (B, S, H * v)."""
+    m = cfg.mla
+    B, S, H, _ = q_nope.shape
+    L, nope, dv = m.kv_lora_rank, m.qk_nope_dim, m.v_head_dim
+    dt = cache["c"].dtype
+    wkv_b = p["wkv_b"]["w"].to(dt).reshape(L, H, nope + dv)
+    w_uk = wkv_b[..., :nope].permute(1, 2, 0)               # (H, nope, L)
+    w_uv = wkv_b[..., nope:].permute(1, 0, 2)               # (H, L, v)
+    qn = q_nope.to(dt).permute(2, 0, 1, 3).reshape(H, B * S, nope)
+    q_c = torch.bmm(qn, w_uk).reshape(H, B, S, L).permute(1, 2, 0, 3)
+    q_c = q_c.reshape(B, S * H, L)
+    q_r = q_rope.to(dt).reshape(B, S * H, m.qk_rope_dim)
+    c, kr, kv_pos = paged_gather_latents(cache, pages["tbl"])
+    scale = m.qk_head_dim ** -0.5 * softmax_scale(cfg)
+    scores = (_mm_f32(q_c, c.transpose(1, 2))
+              + _mm_f32(q_r, kr.transpose(1, 2))) * scale    # (B, S*H, C)
+    valid = ((kv_pos[:, None, :] >= 0)
+             & (kv_pos[:, None, :] <= positions.long()[:, :, None]))
+    valid = valid[:, :, None, :].expand(B, S, H, c.shape[1])
+    scores = torch.where(valid.reshape(B, S * H, -1), scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out_c = _mm_f32(w.to(dt), c).to(dt)                     # (B, S*H, L)
+    out_c = out_c.reshape(B, S, H, L).permute(2, 0, 1, 3).reshape(H, B * S, L)
+    out = torch.bmm(out_c, w_uv)                            # (H, B*S, v)
+    return out.reshape(H, B, S, dv).permute(1, 2, 0, 3).reshape(B, S, H * dv)
 
 
 def _write_cache(cache: dict, c: torch.Tensor, k_rope: torch.Tensor,
@@ -149,17 +238,33 @@ def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
               cache_index=None,
               fill_cache: bool = False,
               cache_capacity: Optional[int] = None,
+              pages: Optional[dict] = None,
               opts: RunOpts = DEFAULT_OPTS):
-    """Returns (y, new_cache).  ``opts`` is taken for the attention
-    module's signature; no option changes MLA."""
+    """Returns (y, new_cache).  ``cache`` a latent ring, or a latent block
+    pool with ``pages`` its block table (``attention.attn_apply``'s).
+    ``opts`` is taken for the attention module's signature; no option
+    changes MLA."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
     q_nope, q_rope = _project_q(cfg, p, x, positions)
     c, k_rope = _compress_kv(cfg, p, x, positions)
+    if cache is not None and "ppos" in cache:
+        # ---- paged: absorbed, over the row's blocks ----
+        if pages is None:
+            raise ValueError("paged cache given without a block table "
+                             "(pages=None)")
+        new_cache = paged_write_leaves(cache, {"c": c, "k_rope": k_rope},
+                                       positions, pages)
+        out = _paged_absorbed(cfg, p, q_nope, q_rope, new_cache, pages,
+                              positions)
+        return dense(p["wo"], out.to(x.dtype)), new_cache
+
     scale = 1.0 / torch.sqrt(torch.tensor(float(m.qk_head_dim),
                                           dtype=torch.float32,
                                           device=x.device))
+    if softmax_scale(cfg) != 1.0:
+        scale = scale * softmax_scale(cfg)
 
     if cache is not None:
         # ---- absorbed decode against the compressed cache ----

@@ -19,7 +19,16 @@ Where the port has to choose what the reference leaves to its framework:
   * Capacity is per call: ``C = max(int(K * N * capacity_factor / E), 4)``
     with N = B * S, every row the call carries (padding and inactive
     decode slots included).  Two callers that batch rows differently drop
-    different copies.
+    different copies.  A config with ``capacity_factor=None`` (the port's
+    own field) serves dropless: ``C = N``, the most copies one expert can
+    receive (a token routes to K distinct experts), so no copy drops and
+    a token's output does not depend on the rows beside it; the shapes
+    stay static, at E / K times the rows routed.  Where a capacity
+    applies, a serving engine counts the dropped copies on the device
+    (``models/observe.py``).
+  * Gates: the top-k probabilities renormalised to sum to 1, as the
+    reference does; ``norm_topk_prob=False`` (the port's own field, as
+    DeepSeek-V2-Lite publishes it) keeps them raw.
   * Combine: the reference scatter-adds every expert slot into its token
     (``.at[].add``); ``index_add_`` on CUDA uses atomics, whose order
     varies between runs.  The port instead gathers each token's K weighted
@@ -36,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import observe
 from repro_torch.models.layers import apply_mlp, gelu, mlp_params
 from repro_torch.models.param import P
 from repro_torch.sharding.gathered import replicate, replicated_local
@@ -80,8 +90,24 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              capacity_factor: float = 1.25):
+def expert_capacity(cfg: ModelConfig, rows: int) -> int:
+    """C, the slots of each expert in a call over ``rows`` tokens: GShard's
+    ``max(int(K * N * capacity_factor / E), 4)``, or N where the config
+    serves dropless (``capacity_factor=None``)."""
+    m = cfg.moe
+    if m.capacity_factor is None:
+        return rows
+    return max(int(m.top_k * rows * m.capacity_factor / m.num_experts), 4)
+
+
+def dispatch_sizes(cfg: ModelConfig, rows: int) -> tuple:
+    """(routed copies N * K, expert rows computed E * C) of one MoE layer
+    over ``rows`` tokens: known from shapes, with no look at the card."""
+    m = cfg.moe
+    return rows * m.top_k, m.num_experts * expert_capacity(cfg, rows)
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, D).  Returns (y, aux_loss)."""
     m = cfg.moe
     # over DTensors the layer runs on every token (rows gathered): the
@@ -101,7 +127,8 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # rank (sharding.gathered); on plain tensors this is the identity
     probs, as_dtensor = replicated_local(probs)
     gate, eid = _top_k(probs, K)                                     # (N,K)
-    gate = gate / gate.sum(dim=-1, keepdim=True)                     # renorm
+    if m.norm_topk_prob:
+        gate = gate / gate.sum(dim=-1, keepdim=True)                 # renorm
 
     # aux load-balance loss: E * sum_e f_e * P_e
     f = F.one_hot(eid, E).float().sum(dim=1).mean(dim=0)
@@ -109,7 +136,7 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     aux = E * (f * pbar).sum() * m.router_aux_coef
 
     # --- dispatch: sort token copies by expert ---
-    C = max(int(K * N * capacity_factor / E), 4)
+    C = expert_capacity(cfg, N)
     eid_flat = eid.reshape(-1)                                       # (N*K,)
     tok_of_copy = torch.arange(N * K, device=dev) // K
     order = torch.argsort(eid_flat, stable=True)
@@ -119,6 +146,8 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     seg_start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * K, device=dev) - seg_start[sorted_eid]
     valid = rank < C
+    if C < N:
+        observe.count_dropped((~valid).sum())
     dest = torch.where(valid, sorted_eid * C + rank,
                        torch.full_like(rank, E * C))     # drop -> scratch
 

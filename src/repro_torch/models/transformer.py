@@ -24,7 +24,9 @@ unstacks a reference tree into this layout; the encoder's layers are
 
 Caches: an attention layer holds a contiguous ring or a paged pool
 (``models/attention.py``), an MLA layer its latent ring ``{"c", "k_rope",
-"pos"}`` (contiguous only, as in the reference); a recurrent layer holds its state, ``{"h",
+"pos"}`` or, paged (the port's own: the reference's MLA is contiguous
+only), its latent block pool ``{"c", "k_rope", "ppos"}``; a recurrent
+layer holds its state, ``{"h",
 "conv"}`` (RG-LRU), ``{"C", "n", "m"}`` (mLSTM) or ``{"c", "n", "h",
 "m"}`` (sLSTM).  :func:`init_caches` fills them with the reference's
 sentinels by leaf name (:func:`materialize_caches`): int leaves -1, every
@@ -61,6 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import observe
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
@@ -302,17 +305,19 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def paged_eligible(cfg: ModelConfig) -> bool:
-    """Paged KV needs every layer to be plain attention with a standard
-    K/V cache: no MLA, no recurrent state, no encoder-decoder cross-K/V."""
+    """A paged cache needs every layer to be attention whose state is one
+    entry a position: GQA's K/V or MLA's latent (``c``, ``k_rope``); no
+    recurrent state, no encoder-decoder cross-K/V.  (The reference pages
+    no MLA: its MLA cache is contiguous only.)"""
     return (all(kind == ATTN for kind in cfg.layer_kinds())
-            and cfg.attention in ("full", "sliding")
+            and cfg.attention in ("full", "sliding", "mla")
             and cfg.family != "encdec")
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
                       device=None) -> List[dict]:
     """Empty paged caches (all blocks free, ``ppos`` -1), one pool per
-    layer."""
+    layer: K/V, or MLA's latents."""
     if not paged_eligible(cfg):
         raise ValueError(f"paged KV cache unsupported for arch "
                          f"{cfg.name!r} (layers {cfg.layer_kinds()}, "
@@ -320,6 +325,10 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
                          f"{cfg.family!r})")
     check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.attention == "mla":
+        shapes = mla_mod.mla_paged_cache_shapes(cfg, num_blocks, block_size)
+        return [materialize_caches(shapes, dev)
+                for _ in range(cfg.num_layers)]
     return [attn_mod.init_paged_cache(cfg, num_blocks, block_size, device=dev)
             for _ in range(cfg.num_layers)]
 
@@ -350,10 +359,11 @@ def _apply_block(cfg: ModelConfig, kind: str, moe_flag: bool, p: dict,
         own = (None if cache is None else
                {k: v for k, v in cache.items() if not k.startswith("cross_")})
         if cfg.attention == "mla":
-            a_out, ncache = mla_mod.mla_apply(
-                cfg, p["attn"], xn, positions=positions, cache=own,
-                cache_index=cache_index, fill_cache=fill_cache,
-                cache_capacity=cache_capacity, opts=opts)
+            with observe.span("mla"):
+                a_out, ncache = mla_mod.mla_apply(
+                    cfg, p["attn"], xn, positions=positions, cache=own,
+                    cache_index=cache_index, fill_cache=fill_cache,
+                    cache_capacity=cache_capacity, pages=pages, opts=opts)
         else:
             a_out, ncache = attn_mod.attn_apply(
                 cfg, p["attn"], xn, positions=positions, cache=own,
@@ -382,7 +392,8 @@ def _apply_block(cfg: ModelConfig, kind: str, moe_flag: bool, p: dict,
             if has_mlp:
                 xn2 = apply_norm(cfg, p["ln2"], x)
                 if moe_flag:
-                    m_out, aux = moe_mod.moe_apply(cfg, p["moe"], xn2)
+                    with observe.span("moe"):
+                        m_out, aux = moe_mod.moe_apply(cfg, p["moe"], xn2)
                 else:
                     m_out = apply_mlp(cfg, p["mlp"], xn2)
                 x = x + m_out
@@ -544,10 +555,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).repeat(B, 1)
     if pages is not None and caches is not None and "plan" not in pages:
-        # where the new K/V land is the same for every layer
-        kp = caches[0]["kp"]
+        # where the new entries land is the same for every layer
+        nb, bs = caches[0]["ppos"].shape
         pages = dict(pages, plan=attn_mod.paged_write_plan(
-            positions, pages, kp.shape[0], kp.shape[1]))
+            positions, pages, nb, bs))
     x = _embed_inputs(cfg, params, tokens, positions, extras)
     enc_out = None
     if cfg.family == "encdec" and "frames" in extras:

@@ -24,9 +24,11 @@ decode ticks charge ``TOKEN`` work and prefill chunks ``PREFILL`` work, so
 under a ``VirtualClock`` turnaround and TTFT are deterministic.
 
 KV layout: contiguous per-slot rings (``paged=False``) or the paged block
-pool (the default wherever ``transformer.paged_eligible`` holds), with a
-host-side :class:`BlockPool` and a per-slot block table; a sliding-window
-arch rings at block granularity, ``ceil((window-1)/bs) + 1`` columns.
+pool (the default wherever ``transformer.paged_eligible`` holds: GQA's
+K/V, or MLA's latents, which the reference serves contiguously only), with
+a host-side :class:`BlockPool` and a per-slot block table; a
+sliding-window arch rings at block granularity, ``ceil((window-1)/bs) +
+1`` columns.
 Stacks with recurrent layers (recurrentgemma-9b, xlstm-350m) are
 contiguous only: each admission prefills a fresh 1-row ``init_caches``
 row (sentinels included) and ``insert_row`` copies its dict states in at
@@ -46,10 +48,15 @@ plain closures (:func:`dispatch_fns`).  Sampling stays inside them: one
 host fetch of the sampled ids per tick.  A paged engine on the card
 replays its prefill chunks from CUDA graphs, one per chunk width
 (:class:`PrefillGraphs`), captured at its first admission; every other
-dispatch runs eagerly.  The simulator's recompile invariant counts the
-port's first-use builds (``obs.probes.jit_cache_entries``: kernel
-libraries, the vision kernels' shape tables, the attention kernels'
-ticket buffers, the prefill graphs' signatures).
+dispatch runs eagerly.  Each dispatch runs under
+:meth:`ServeEngine.observing`: MLA and MoE layers open ``mla`` and ``moe``
+spans inside ``decode.forward`` or an eager ``prefill.forward`` (in a
+graph only at its capture), and the engine counts the MoE layers' routed
+copies and computed expert rows a dispatch from its shapes.  The
+simulator's recompile invariant counts the port's first-use builds
+(``obs.probes.jit_cache_entries``: kernel libraries, the vision kernels'
+shape tables, the attention kernels' ticket buffers, the prefill graphs'
+signatures).
 
 On the card, attention runs through the hand-written kernels when
 ``opts.use_kernels`` is set; inactive slots are mirrored exactly: they keep
@@ -75,6 +82,8 @@ from repro_torch.events.envelope import DEADLINE_MISS, TOKEN_DONE
 from repro_torch.kernels import attention_common as ac
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import observe
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import DEFAULT_OPTS, RunOpts
 
@@ -148,7 +157,7 @@ def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
         pages = {"tbl": tbl, "len": tlen}
         if reset is None:
             pages["plan"] = attn_mod.paged_chunk_plan(
-                positions, pages, caches[0]["kp"].shape[1])
+                positions, pages, caches[0]["ppos"].shape[1])
         else:
             pages["reset"] = reset
         logits, caches, _ = T.forward(cfg, params, tokens,
@@ -235,7 +244,7 @@ class PrefillGraphs:
             main = torch.cuda.current_stream(dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(main)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), eng.observing():
                 for w in self.widths:
                     self.forward(w)
             main.wait_stream(side)
@@ -243,7 +252,7 @@ class PrefillGraphs:
             for w in self.widths:
                 before = kops.launches()
                 g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g, pool=pool):
+                with torch.cuda.graph(g, pool=pool), eng.observing():
                     first = self.forward(w)
                 launched = {k: m - before[k]
                             for k, m in kops.launches().items()
@@ -255,6 +264,9 @@ class PrefillGraphs:
                                       eng.table_cols, w))
         finally:
             eng.block_pool.free(blocks[::-1], self.OWNER)
+        if eng._moe_dropped is not None:
+            # the warm-up chunks' drops are no request's
+            eng._moe_dropped.zero_()
 
     def static_inputs(self, blocks: List[int]) -> None:
         """The graphs' inputs, on the engine's device: tokens and positions
@@ -393,6 +405,15 @@ class ServeEngine(EngineCore):
                         else None)
         self.prefill_graph_replays = 0
         self.prefill_eager_chunks = 0
+        # MoE dispatch counts (layers routing through models/moe.py): the
+        # copies routed and the expert rows computed, from shapes; the
+        # copies dropped, where a capacity applies, on the device
+        self._moe_layers = sum(f for _, f in T._layer_sigs(cfg))
+        self.moe_routed_copies = self.moe_expert_rows = 0
+        self._moe_dropped = (
+            torch.zeros((), dtype=torch.int64, device=self.device)
+            if self._moe_layers and cfg.moe.capacity_factor is not None
+            else None)
 
     @property
     def active(self) -> List[Optional[Request]]:
@@ -488,15 +509,18 @@ class ServeEngine(EngineCore):
             elif self.paged:
                 with self.tspan("prefill.upload"):
                     reset = self._dev([1 if c0 == 0 else 0])
-                with self.tspan("prefill.forward", tokens=chunk):
+                with self.tspan("prefill.forward", tokens=chunk), \
+                        self.observing():
                     first, self.caches = self._fns["paged_prefill"](
                         self.params, self.caches, toks[:, c0: c0 + chunk],
                         pos[:, c0: c0 + chunk], tbl, tlen, reset)
             else:
-                with self.tspan("prefill.forward", tokens=chunk):
+                with self.tspan("prefill.forward", tokens=chunk), \
+                        self.observing():
                     first, row = self._fns["prefill"](
                         self.params, row, toks[:, c0: c0 + chunk],
                         pos[:, c0: c0 + chunk], c0)
+            self._count_moe(chunk)
             c0 += chunk
             chunks += 1
         if graphs is not None:
@@ -511,6 +535,25 @@ class ServeEngine(EngineCore):
             self.caches = insert_row(self.caches, row, slot)
         with self.tspan("prefill.read"):
             return int(first)
+
+    def observing(self):
+        """A dispatch's view into the model (``models/observe.py``): the
+        ``mla`` and ``moe`` spans on this tick's tracer, the dropped-copy
+        counter."""
+        return observe.observing(self.tspan, self._moe_dropped)
+
+    def _count_moe(self, rows: int) -> None:
+        """Count one forward of ``rows`` tokens through the MoE layers."""
+        if not self._moe_layers:
+            return
+        copies, computed = (n * self._moe_layers for n in
+                            moe_mod.dispatch_sizes(self.cfg, rows))
+        self.moe_routed_copies += copies
+        self.moe_expert_rows += computed
+        self._count("serve_moe_routed_copies_total",
+                    "token copies routed to experts", copies)
+        self._count("serve_moe_expert_rows_total",
+                    "expert rows computed (copies and empty slots)", computed)
 
     def _count(self, name: str, what: str, n: int) -> None:
         """Add ``n`` to this engine's counter ``name`` where metrics are
@@ -665,10 +708,11 @@ class ServeEngine(EngineCore):
                 positions = self._dev(self.slot_pos)
                 pages = ((self._dev(self._tbl), self._dev(self._tbl_len))
                          if self.paged else ())
-            with self.tspan("decode.forward"):
+            with self.tspan("decode.forward"), self.observing():
                 nxt, self.caches = self._fns[
                     "paged_decode" if self.paged else "decode"](
                     self.params, self.caches, tokens, positions, *pages)
+            self._count_moe(self.slots)
             with self.tspan("decode.read"):
                 nxt_host = nxt.cpu().numpy()
             dt = self.finish_dispatch(n_active, t_d, TOKEN)
@@ -699,7 +743,10 @@ class ServeEngine(EngineCore):
     def stats(self) -> dict:
         """Serving-loop telemetry (mirrors the vision engine's), with the
         port's prefill counts: chunks replayed from graphs, chunks run
-        eagerly, and the widths captured."""
+        eagerly, and the widths captured; with MoE layers, the copies
+        routed, the expert rows computed and the copies dropped (0 where
+        the config serves dropless; else read from the card, which waits
+        for it)."""
         out = {
             "ticks": self.ticks,
             "tokens_generated": self.tokens_generated,
@@ -712,6 +759,11 @@ class ServeEngine(EngineCore):
             "prefill_graphs": (len(self._graphs.graphs)
                                if self._graphs is not None else 0),
         }
+        if self._moe_layers:
+            out["moe_routed_copies"] = self.moe_routed_copies
+            out["moe_expert_rows"] = self.moe_expert_rows
+            out["moe_dropped_copies"] = (0 if self._moe_dropped is None
+                                         else int(self._moe_dropped))
         if self.paged:
             out["kv_blocks_used"] = self.block_pool.used_blocks
             out["kv_blocks_free"] = self.block_pool.free_blocks

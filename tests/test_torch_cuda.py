@@ -1696,8 +1696,11 @@ def test_decode_after_capture_leaves_the_graphs_ticket_buffers(dev):
     small = dict(cache_capacity=64, prefill_chunk=16, block_size=4)
     eng = _graph_engine(cfg, params, dev, slots=256, **small)
     eng._graphs.capture()
-    held = {kind: t for (kind, d), t in ac._COUNTERS.items()
-            if d.type == "cuda"}
+    # the engine's buffers are keyed by its tensors' device (cuda:0); an
+    # earlier test may have left others under the index-less device
+    # ``dev``, which no launch of this engine reads
+    card = params["embed"]["tokens"].device
+    held = {kind: t for (kind, d), t in ac._COUNTERS.items() if d == card}
     assert set(held) == {"decode", "flash"}
     rng = np.random.default_rng(2)
     for i in range(256):
@@ -1706,7 +1709,7 @@ def test_decode_after_capture_leaves_the_graphs_ticket_buffers(dev):
     assert eng.step() == 256
     eng.run()
     for (kind, d), t in ac._COUNTERS.items():
-        if d.type == "cuda":
+        if d == card:
             assert t is held[kind], kind
     prompt = rng.integers(0, 256, 7)
     firsts = []
@@ -1717,3 +1720,105 @@ def test_decode_after_capture_leaves_the_graphs_ticket_buffers(dev):
         e.run()
         firsts.append([r.generated for r in e.finished if r.rid == "last"])
     assert firsts[0] == firsts[1] and len(firsts[0]) == 1
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite: MLA's latent pool and dropless MoE on the paged path
+# ---------------------------------------------------------------------------
+
+
+def _dsv2(layers, dev, seed=2 ** 31 + 7):
+    """deepseek-v2-lite at its published widths and ``layers`` layers (one
+    dense, the rest MoE), bf16, the benchmark's config and seeded draw."""
+    import json
+    from pathlib import Path
+    from portbench.drivers import lm_serve_moe as D
+    conf = json.loads((Path(__file__).resolve().parents[1] / "portbench"
+                       / "configs" / "deepseek-v2-lite.json").read_text())
+    conf["num_hidden_layers"] = layers
+    cfg = D.model_config(conf)
+    return conf, cfg, D.weights(torch, cfg, seed, dev)
+
+
+@pytest.mark.cuda
+def test_mla_moe_prefill_graphs_match_the_eager_chunk_at_every_width(dev):
+    """deepseek-v2-lite's widths (a dense and a MoE layer, bf16, 64
+    experts dropless): for every chunk width 1-128, the width's graph
+    replayed on a slot of recycled blocks (stale positions and latents)
+    whose ring of 12 columns the chunk wraps gives the eager
+    ``paged_prefill`` dispatch's token and latent pool bit for bit, and
+    waits for nothing (``set_sync_debug_mode("error")``)."""
+    from repro_torch.serving.engine import dispatch_fns
+    _, cfg, params = _dsv2(2, dev)
+    eng = _graph_engine(cfg, params, dev)
+    assert eng.paged
+    g = eng._graphs
+    g.capture()
+    assert sorted(g.graphs) == g.widths == [1 << i for i in range(8)]
+    rng = np.random.default_rng(0)
+    blocks = eng.block_pool.alloc(12, "slot")
+    eng._tbl[0, :12] = blocks
+    eng._tbl_len[0] = 12
+    for c in eng.caches:
+        c["ppos"][blocks] = torch.from_numpy(rng.integers(
+            0, 4000, (12, 16)).astype(np.int32)).to(dev)
+        c["c"][blocks] = torch.randn_like(c["c"][blocks])
+        c["k_rope"][blocks] = torch.randn_like(c["k_rope"][blocks])
+    stale = _pool(eng.caches)
+    tbl = torch.from_numpy(eng._tbl[:1]).to(dev)
+    tlen = torch.from_numpy(eng._tbl_len[:1]).to(dev)
+    reset = torch.ones(1, dtype=torch.int32, device=dev)
+    eager = dispatch_fns(cfg, eng.opts, eng.sample)["paged_prefill"]
+    for w in g.widths:
+        c0 = 150                            # the ring holds 192 entries
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, w))).to(dev)
+        pos = torch.arange(c0, c0 + w, dtype=torch.int32, device=dev)[None]
+        want_pool = _pool(stale)
+        want, _ = eager(params, want_pool, tok, pos, tbl, tlen, reset)
+        for c, s in zip(eng.caches, stale):
+            for k in c:
+                c[k].copy_(s[k])
+        g.begin(0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = g.run(tok, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert int(got) == int(want), w
+        for c, s in zip(eng.caches, want_pool):
+            for k in c:
+                assert torch.equal(c[k], s[k]), (w, k)
+
+
+@pytest.mark.cuda
+def test_paged_mla_decode_at_published_widths_agrees_with_the_reference(dev):
+    """deepseek-v2-lite's widths, three layers (a dense, two MoE), bf16:
+    eight requests through the paged engine on the card (chunked prefill
+    from the graphs, then the absorbed decode over the latent pool) serve
+    tokens whose reference logits (float32, expanded MLA, the MoE expert by
+    expert) lie within the cell's ``token_gap`` of the reference's best at
+    every served position; nothing is dropped, every chunk a replay."""
+    import json
+    from pathlib import Path
+    from portbench.drivers import lm_serve
+    conf, cfg, params = _dsv2(3, dev)
+    limits = json.loads((Path(__file__).resolve().parents[1] / "portbench"
+                         / "limits" / "serve_dsv2_lite_batch.json"
+                         ).read_text())
+    eng = ServeEngine(cfg, params, slots=8, cache_capacity=512,
+                      prefill_chunk=128, block_size=16, paged=True,
+                      opts=RunOpts(use_kernels=True), device=dev)
+    rng = np.random.default_rng(3)
+    for i, n in enumerate((300, 37, 128, 1, 255, 64, 190, 17)):
+        eng.submit(Request(rid=f"r{i}", tokens=rng.integers(
+            0, cfg.vocab_size, n), max_new_tokens=24))
+    done = eng.run()
+    st = eng.stats()
+    assert len(done) == 8 and st["moe_dropped_copies"] == 0
+    assert st["prefill_eager_chunks"] == 0 and st["prefill_graph_replays"]
+    del eng
+    mix = {"check": {"requests": 8}}
+    checks = lm_serve.check(torch, conf, params, done, 11, mix, limits, dev)
+    gap, limit = checks["token_gap"]
+    assert 0 <= gap <= limit, (gap, limit)

@@ -242,8 +242,11 @@ def test_deepseek_prefill_decode_match_reference():
 
 def test_mla_caches_are_latent_rings_and_contiguous_only():
     """``init_caches`` gives each layer ``{"c", "k_rope", "pos"}`` with
-    ``pos`` -1 (the leaf-name rule), the reference's shapes; MLA is not
-    paged-eligible, so the engine serves it contiguously."""
+    ``pos`` -1 (the leaf-name rule), the reference's shapes.  The reference
+    serves MLA contiguously only; the port also pages it: each layer's
+    pool holds the latent ``c`` and ``k_rope`` in the compute dtype beside
+    ``ppos`` -1, and the engine serves it paged by default (contiguous
+    when asked)."""
     jc, tc = _cfgs()
     TT.check_supported(get_arch(ARCH))
     t = TT.init_caches(tc, 2, 12, device="cpu")
@@ -253,18 +256,28 @@ def test_mla_caches_are_latent_rings_and_contiguous_only():
             k: (tuple(v.shape), v.dtype) for k, v in jl.items()}
         assert torch.equal(tl["pos"], jl["pos"])
         assert torch.all(tl["pos"] == -1)
-    assert not TT.paged_eligible(tc) and not JT.paged_eligible(jc)
-    with pytest.raises(ValueError, match="paged KV cache unsupported"):
-        TT.init_paged_caches(tc, 4, 4, device="cpu")
+    assert TT.paged_eligible(tc) and not JT.paged_eligible(jc)
+    m, dt = tc.mla, getattr(torch, tc.compute_dtype)
+    pools = TT.init_paged_caches(tc, 4, 4, device="cpu")
+    assert len(pools) == tc.num_layers
+    for pool in pools:
+        assert {k: (tuple(v.shape), v.dtype) for k, v in pool.items()} == {
+            "c": ((4, 4, m.kv_lora_rank), dt),
+            "k_rope": ((4, 4, m.qk_rope_dim), dt),
+            "ppos": ((4, 4), torch.int32)}
+        assert torch.all(pool["ppos"] == -1)
     params = TT.init_params(tc, torch.Generator().manual_seed(0),
                             device="cpu")
-    assert not ServeEngine(tc, params, device="cpu", **ENGINE).paged
+    assert ServeEngine(tc, params, device="cpu", **ENGINE).paged
+    assert not ServeEngine(tc, params, device="cpu", paged=False,
+                           **ENGINE).paged
 
 
 @pytest.fixture(scope="module")
 def deepseek_drained():
     """Reduced deepseek through the reference's engine and the port's
-    (plain and ``use_kernels=True``), contiguous, under a VirtualClock."""
+    (plain and ``use_kernels=True``), contiguous (the port would page MLA
+    by default; the reference's engine cannot), under a VirtualClock."""
     jc, tc = _cfgs()
     jp = JT.init_params(jc, jax.random.key(0))
     tp = convert.transformer_from_jax(_np(jp), tc, device="cpu")
@@ -281,7 +294,7 @@ def deepseek_drained():
     for use_kernels in (False, True):
         t = ServeEngine(tc, tp, clock=VirtualClock(RATES), eda=EDAConfig(),
                         device="cpu", opts=RunOpts(use_kernels=use_kernels),
-                        **ENGINE)
+                        paged=False, **ENGINE)
         for rid, toks, mx, pr in work:
             t.submit(Request(rid=rid, tokens=toks, max_new_tokens=mx,
                              priority=pr))
