@@ -12,7 +12,8 @@ Two layouts:
     ``ppos (nb, bs)`` (MLA's latent pool: ``c``/``k_rope``, ``ppos``,
     written by the same plans), read and written through a block table
     ``pages = {"tbl" (B, M), "len" (B,), "reset" (B,)}`` (a prefill chunk
-    may bring a ready ``"plan"`` in place of ``"reset"``).
+    or a decode forward may bring a ready ``"plan"`` in place of
+    ``"reset"``).
 
 Where the port departs from the reference's array semantics:
 
@@ -167,27 +168,36 @@ def paged_write_plan(positions: torch.Tensor, pages: dict, num_blocks: int,
     forward, so the model computes it once.
 
     Returns ``{"reset": block ids to invalidate, "src": kept entries of the
-    flattened (B*S) new K/V, "dst": their flat pool indices}``.  Entries
-    the reference drops — position < 0, a -1 table column — are left out
-    here (a compaction, which waits for the card)."""
+    flattened (B*S) new K/V, "dst": their flat pool indices, "pos": their
+    positions}``.  Entries the reference drops — position < 0, a -1 table
+    column — are left out here (a compaction, which waits for the
+    card)."""
     tbl = pages["tbl"].long()
     own = (tbl >= 0) & (pages["reset"].long()[:, None] > 0)
     blk, flat = _pool_index(positions, pages, block_size)
     ok = ((positions.long() >= 0) & (blk >= 0)).reshape(-1)
     src = torch.nonzero(ok).reshape(-1)
-    return {"reset": tbl[own], "src": src, "dst": flat.reshape(-1)[src]}
+    return {"reset": tbl[own], "src": src, "dst": flat.reshape(-1)[src],
+            "pos": positions.reshape(-1)[src]}
 
 
-def paged_chunk_plan(positions: torch.Tensor, pages: dict,
-                     block_size: int) -> dict:
-    """The write plan of a paged prefill chunk (``pages`` without
-    ``reset``): every entry lands, since its positions are >= 0 and its
-    table row holds the slot's own blocks, so there is no compaction and
-    no reset, and nothing waits for the card (a CUDA graph can hold it).
-    The recycled blocks are invalidated beforehand
-    (:func:`invalidate_blocks`)."""
+def paged_decode_plan(positions: torch.Tensor, pages: dict, sink: int,
+                      block_size: int) -> dict:
+    """The write plan of a paged forward whose blocks were invalidated
+    beforehand (:func:`invalidate_blocks`): a decode over every slot, or a
+    CUDA graph's prefill chunk.  An entry the reference drops (a retired
+    slot's -1 table row, a position < 0) lands in the pool's ``sink``
+    block instead, with position -1, so the sink stays empty; every other
+    entry lands where :func:`paged_write_plan`'s does.  No compaction and
+    no reset, so nothing waits for the card and a CUDA graph can hold it.
+    The sink is a block no table names, so no read ever reaches it."""
+    blk, _ = _pool_index(positions, pages, block_size)
+    pos = positions.long()
+    ok = (pos >= 0) & (blk >= 0)
+    blk = torch.where(ok, blk, sink)
     return {"reset": None, "src": None,
-            "dst": _pool_index(positions, pages, block_size)[1].reshape(-1)}
+            "dst": (blk * block_size + pos % block_size).reshape(-1),
+            "pos": torch.where(ok, pos, -1).reshape(-1)}
 
 
 def invalidate_blocks(cache: dict, blocks: torch.Tensor) -> None:
@@ -203,7 +213,7 @@ def paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
     in place.  A row with ``reset > 0`` first invalidates every entry of
     its own blocks (recycled blocks carry the previous owner's positions).
     ``pages["plan"]`` (from :func:`paged_write_plan` or
-    :func:`paged_chunk_plan`) is used when given; a plan with no reset
+    :func:`paged_decode_plan`) is used when given; a plan with no reset
     writes none."""
     return paged_write_leaves(cache, {"kp": k, "vp": v}, positions, pages)
 
@@ -222,9 +232,6 @@ def paged_write_leaves(cache: dict, new: dict, positions: torch.Tensor,
     if plan["reset"] is not None:
         pp[plan["reset"]] = -1
     src, dst = plan["src"], plan["dst"]
-    pos = positions.reshape(-1)
-    if src is not None:
-        pos = pos[src]
     for name, t in new.items():
         pool = cache[name]
         feat = pool.shape[2:]
@@ -232,7 +239,7 @@ def paged_write_leaves(cache: dict, new: dict, positions: torch.Tensor,
         if src is not None:
             t = t[src]
         pool.view((nb * bs,) + feat)[dst] = t.to(pool.dtype)
-    pp.view(-1)[dst] = pos.to(torch.int32)
+    pp.view(-1)[dst] = plan["pos"].to(torch.int32)
     return cache
 
 

@@ -47,15 +47,17 @@ engine of one (cfg, opts, sample); PyTorch runs eagerly, so here they are
 plain closures (:func:`dispatch_fns`).  Sampling stays inside them: one
 host fetch of the sampled ids per tick.  A paged engine on the card
 replays its prefill chunks from CUDA graphs, one per chunk width
-(:class:`PrefillGraphs`), captured at its first admission; every other
-dispatch runs eagerly.  Each dispatch runs under
+(:class:`PrefillGraphs`), and its decode forward from one graph at
+B = ``slots`` (:class:`DecodeGraph`), all captured at its first
+admission; a contiguous engine, and any engine off the card, runs every
+dispatch eagerly.  Each dispatch runs under
 :meth:`ServeEngine.observing`: MLA and MoE layers open ``mla`` and ``moe``
-spans inside ``decode.forward`` or an eager ``prefill.forward`` (in a
+spans inside an eager ``decode.forward`` or ``prefill.forward`` (in a
 graph only at its capture), and the engine counts the MoE layers' routed
 copies and computed expert rows a dispatch from its shapes.  The
 simulator's recompile invariant counts the port's first-use builds
 (``obs.probes.jit_cache_entries``: kernel libraries, the vision kernels'
-shape tables, the attention kernels' ticket buffers, the prefill graphs'
+shape tables, the attention kernels' ticket buffers, the graphs'
 signatures).
 
 On the card, attention runs through the hand-written kernels when
@@ -65,6 +67,8 @@ advancing ``slot_pos`` and (contiguous) writing their own row, which
 """
 from __future__ import annotations
 
+import functools
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
@@ -128,10 +132,13 @@ def _argmax_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
-def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
-                 sample: Callable) -> Dict[str, Callable]:
+def dispatch_fns(cfg: ModelConfig, opts: RunOpts, sample: Callable,
+                 sink: Optional[int] = None) -> Dict[str, Callable]:
     """The four serving dispatch functions, closing over (cfg, opts,
-    sample); each returns sampled token ids, not logits."""
+    sample); each returns sampled token ids, not logits.  ``sink``: the
+    paged pool's block that no table names (``ServeEngine.sink``), where
+    the paged dispatches that reset nothing send the entries the reference
+    drops (``attention.paged_decode_plan``)."""
     def prefill_chunk(params, caches, tokens, positions, start):
         # contiguous: one chunk of a single-row prompt at ring offset start
         logits, caches, _ = T.forward(cfg, params, tokens,
@@ -156,8 +163,8 @@ def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
         # entry lands, a plan with no host sync (the CUDA graphs' form)
         pages = {"tbl": tbl, "len": tlen}
         if reset is None:
-            pages["plan"] = attn_mod.paged_chunk_plan(
-                positions, pages, caches[0]["ppos"].shape[1])
+            pages["plan"] = attn_mod.paged_decode_plan(
+                positions, pages, sink, caches[0]["ppos"].shape[1])
         else:
             pages["reset"] = reset
         logits, caches, _ = T.forward(cfg, params, tokens,
@@ -167,8 +174,11 @@ def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
 
     def paged_decode(params, caches, tokens, positions, tbl, tlen):
         # paged: all slots through the full block table; retired rows are
-        # all -1 (writes dropped, attention fully masked)
-        pages = {"tbl": tbl, "len": tlen, "reset": torch.zeros_like(tlen)}
+        # all -1 (attention fully masked), their entries written into the
+        # sink: a plan with no host sync (the decode graph's form)
+        pages = {"tbl": tbl, "len": tlen}
+        pages["plan"] = attn_mod.paged_decode_plan(
+            positions[:, None], pages, sink, caches[0]["ppos"].shape[1])
         logits, caches, _ = T.forward(cfg, params, tokens,
                                       positions=positions[:, None],
                                       caches=caches, pages=pages, opts=opts)
@@ -179,14 +189,57 @@ def dispatch_fns(cfg: ModelConfig, opts: RunOpts,
             "paged_decode": paged_decode}
 
 
-#: what the prefill graphs captured in this process were captured for:
-#: (cfg, opts, device, pool geometry, width), one entry per distinct
-#: signature, as the reference's jit caches hold one compile per traced
-#: signature (``obs.probes.jit_cache_entries``)
+#: what the graphs captured in this process were captured for: (cfg,
+#: opts, device, pool geometry, chunk width or ``("decode", slots)``), one
+#: entry per distinct signature, as the reference's jit caches hold one
+#: compile per traced signature (``obs.probes.jit_cache_entries``)
 GRAPH_SIGNATURES: set = set()
 
 
-class PrefillGraphs:
+def _warm_up(eng: "ServeEngine", forwards) -> None:
+    """Run each of ``forwards`` once eagerly on a side stream, as a
+    capture wants before it: the allocator and the kernels are then warm
+    and the capture records no first-use work."""
+    main = torch.cuda.current_stream(eng.device)
+    side = torch.cuda.Stream(eng.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side), eng.observing():
+        for f in forwards:
+            f()
+    main.wait_stream(side)
+
+
+def _record(eng: "ServeEngine", forward: Callable, pool) -> tuple:
+    """Capture ``forward()`` into a CUDA graph of the memory pool
+    ``pool``.  Returns (graph, its output, the kernel launches it holds):
+    the capture's launches are taken back off ``kernels.ops``' counts, and
+    each replay adds them again."""
+    before = kops.launches()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, pool=pool), eng.observing():
+        out = forward()
+    launched = {k: m - before[k] for k, m in kops.launches().items()
+                if m != before[k]}
+    kops.add_launches({k: -m for k, m in launched.items()})
+    return g, out, launched
+
+
+class _EngineGraphs:
+    """What an engine's graphs share: a weak reference to the engine, so
+    that an engine and its graphs form no cycle.  A dropped engine then
+    frees its graphs at once, by reference counting; left to the cyclic
+    garbage collector, they could be destroyed in the middle of another
+    engine's capture, which invalidates that capture."""
+
+    def __init__(self, eng: "ServeEngine") -> None:
+        self._eng = weakref.ref(eng)
+
+    @property
+    def eng(self) -> "ServeEngine":
+        return self._eng()
+
+
+class PrefillGraphs(_EngineGraphs):
     """A paged engine's prefill chunk forward as CUDA graphs, one per chunk
     width (1, 2, 4, ... up to its widest chunk), all captured at once
     (:meth:`capture`, at the engine's first admission) and replayed for
@@ -198,7 +251,7 @@ class PrefillGraphs:
     length (one int32 row, uploaded once an admission by :meth:`begin`).
     Nothing inside a graph waits for the host: RoPE's frequencies are kept
     on the card (``layers.rope_freqs``), the write plan takes every entry
-    (``attention.paged_chunk_plan``), and :meth:`begin` invalidates the
+    (``attention.paged_decode_plan``), and :meth:`begin` invalidates the
     slot's recycled blocks before the first replay.  The graphs run the
     eager chunk's kernels (the flash kernel, the decode kernel at width
     1), whose ticket counters are grown to the engine's largest call
@@ -207,12 +260,14 @@ class PrefillGraphs:
     OWNER = "<prefill graph capture>"
 
     def __init__(self, eng: "ServeEngine") -> None:
-        self.eng = eng
+        super().__init__(eng)
         top = min(eng.prefill_chunk, eng.capacity,
                   min(eng.table_cols, eng.num_blocks) * eng.block_size)
         self.widths = [1 << i for i in range(top.bit_length())]
         #: {width: (graph, its sampled token, its kernel launches)}
         self.graphs: Dict[int, tuple] = {}
+        #: the graphs' memory pool, which the decode graph shares
+        self.pool = None
 
     def forward(self, w: int) -> torch.Tensor:
         """The chunk forward of width ``w`` on the static inputs, as each
@@ -231,7 +286,7 @@ class PrefillGraphs:
         order that leaves its free list as it was, so no slot's KV is
         touched."""
         eng = self.eng
-        cfg, dev, top = eng.cfg, eng.device, self.widths[-1]
+        cfg, top = eng.cfg, self.widths[-1]
         blocks = eng.block_pool.alloc(-(-top // eng.block_size), self.OWNER)
         try:
             self.static_inputs(blocks)
@@ -241,27 +296,13 @@ class PrefillGraphs:
                                     cfg.num_kv_heads,
                                     getattr(torch, cfg.compute_dtype),
                                     decode_rows=eng.slots, flash_tokens=top)
-            main = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(main)
-            with torch.cuda.stream(side), eng.observing():
-                for w in self.widths:
-                    self.forward(w)
-            main.wait_stream(side)
-            pool = torch.cuda.graph_pool_handle()
+            _warm_up(eng, [functools.partial(self.forward, w)
+                           for w in self.widths])
+            self.pool = torch.cuda.graph_pool_handle()
             for w in self.widths:
-                before = kops.launches()
-                g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g, pool=pool), eng.observing():
-                    first = self.forward(w)
-                launched = {k: m - before[k]
-                            for k, m in kops.launches().items()
-                            if m != before[k]}
-                kops.add_launches({k: -m for k, m in launched.items()})
-                self.graphs[w] = (g, first, launched)
-                GRAPH_SIGNATURES.add((cfg, eng.opts, str(self.pages.device),
-                                      eng.num_blocks, eng.block_size,
-                                      eng.table_cols, w))
+                self.graphs[w] = _record(
+                    eng, functools.partial(self.forward, w), self.pool)
+                GRAPH_SIGNATURES.add(eng.graph_signature(self.pages.device, w))
         finally:
             eng.block_pool.free(blocks[::-1], self.OWNER)
         if eng._moe_dropped is not None:
@@ -305,6 +346,101 @@ class PrefillGraphs:
         g.replay()
         kops.add_launches(launched)
         return first
+
+
+def _aligned(n: int) -> int:
+    """``n`` rounded up to a whole 64 bytes of int32."""
+    return -(-n // 16) * 16
+
+
+class DecodeGraph(_EngineGraphs):
+    """A paged engine's decode forward (the model step and sampling for all
+    ``slots`` rows, ``dispatch_fns(...)["paged_decode"]``) as one CUDA
+    graph at B = ``slots``, captured at the engine's first admission after
+    the prefill graphs, in their memory pool (:meth:`capture`), and
+    replayed every tick after (:meth:`run`).
+
+    The graph reads four static inputs, views of one int32 buffer on the
+    card: each slot's last token, its position, its table row and its ring
+    length.  :meth:`upload` fills them from the engine's host state with
+    one copy of a pinned buffer a tick; the sampled ids' fetch stays
+    outside, in the engine.  Nothing inside the graph waits for the host:
+    the write plan sends a retired slot's entry into the pool's sink block
+    (``attention.paged_decode_plan``), and decode never resets a block,
+    since each admission invalidated its own.  The decode kernel's ticket
+    counters are those the prefill graphs' capture grew to B = ``slots``
+    (``attention_common.reserve_counters``)."""
+
+    def __init__(self, eng: "ServeEngine") -> None:
+        super().__init__(eng)
+        S, cols = eng.slots, eng.table_cols
+        # offsets of tokens, positions, table rows, ring lengths
+        self.offsets = [0]
+        for n in (S, S, S * cols, S):
+            self.offsets.append(self.offsets[-1] + _aligned(n))
+        #: (graph, its sampled ids, its kernel launches), once captured
+        self.graph: Optional[tuple] = None
+
+    def parts(self, buf) -> tuple:
+        """The four inputs in ``buf`` (the card's buffer or the pinned
+        one's array): last tokens, positions, table rows (slots, cols),
+        ring lengths."""
+        S, cols, o = self.eng.slots, self.eng.table_cols, self.offsets
+        return (buf[o[0]: o[0] + S], buf[o[1]: o[1] + S],
+                buf[o[2]: o[2] + S * cols].reshape(S, cols),
+                buf[o[3]: o[3] + S])
+
+    def forward(self) -> torch.Tensor:
+        """The decode forward on the static inputs, as the graph holds it;
+        returns the sampled ids (slots,)."""
+        eng = self.eng
+        tok, pos, tbl, tlen = self.parts(self.buf)
+        nxt, _ = eng._fns["paged_decode"](
+            eng.params, eng.caches, tok.long()[:, None], pos, tbl, tlen)
+        return nxt
+
+    @torch.no_grad()
+    def capture(self, pool) -> None:
+        """Warm the forward up eagerly on a side stream, then capture it
+        into a graph of ``pool``.  The static table is all -1 meanwhile, so
+        every row's entry lands in the sink and no slot's KV is touched."""
+        eng = self.eng
+        self.host = torch.empty(self.offsets[-1], dtype=torch.int32,
+                                pin_memory=eng.device.type == "cuda")
+        self.host_np = self.host.numpy()
+        self.host_np[:] = 0
+        _, _, tbl, tlen = self.parts(self.host_np)
+        tbl[:] = -1
+        tlen[:] = 1
+        self.buf = self.host.to(eng.device, copy=True)
+        _warm_up(eng, [self.forward])
+        self.graph = _record(eng, self.forward, pool)
+        GRAPH_SIGNATURES.add(eng.graph_signature(self.buf.device,
+                                                 ("decode", eng.slots)))
+        if eng._moe_dropped is not None:
+            # the warm-up's drops are no request's
+            eng._moe_dropped.zero_()
+
+    def upload(self) -> None:
+        """Fill the static inputs from the engine's host state (last
+        tokens, positions, block table, ring lengths): one host-to-card
+        copy of the pinned buffer, which no later tick rewrites before the
+        card has read it (each tick waits for its sampled ids)."""
+        eng = self.eng
+        tok, pos, tbl, tlen = self.parts(self.host_np)
+        tok[:] = eng.slot_last
+        pos[:] = eng.slot_pos
+        tbl[:] = eng._tbl
+        tlen[:] = eng._tbl_len
+        self.buf.copy_(self.host, non_blocking=True)
+
+    def run(self) -> torch.Tensor:
+        """Replay the graph on the uploaded inputs; returns its sampled
+        ids, a card tensor the next replay overwrites."""
+        g, nxt, launched = self.graph
+        g.replay()
+        kops.add_launches(launched)
+        return nxt
 
 
 class ServeEngine(EngineCore):
@@ -372,7 +508,11 @@ class ServeEngine(EngineCore):
             self.table_cols = ring_cols
             self.num_blocks = num_blocks or slots * ring_cols
             self.block_pool = BlockPool(self.num_blocks, block_size)
-            self.caches = T.init_paged_caches(cfg, self.num_blocks,
+            # one block past the BlockPool's: the sink, which no table
+            # names, takes a retired slot's decode entry
+            # (``attention.paged_decode_plan``)
+            self.sink = self.num_blocks
+            self.caches = T.init_paged_caches(cfg, self.sink + 1,
                                               block_size, device=self.device)
             # host-side block table: -1 = unused column; tbl_len is each
             # slot's live ring length in columns
@@ -381,6 +521,7 @@ class ServeEngine(EngineCore):
             self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
         else:
             self.num_blocks = 0
+            self.sink = None
             self.block_pool = None
             self.caches = T.init_caches(cfg, slots, cache_capacity,
                                         device=self.device)
@@ -397,14 +538,16 @@ class ServeEngine(EngineCore):
         self.finished: List[Request] = []
         self.token_cost_ms = self.unit_cost_ms
         self.tokens_generated = 0
-        self._fns = dispatch_fns(cfg, opts, self.sample)
-        # a paged engine on the card replays its prefill chunks from CUDA
-        # graphs, captured at its first admission
-        self._graphs = (PrefillGraphs(self)
-                        if self.paged and self.device.type == "cuda"
-                        else None)
+        self._fns = dispatch_fns(cfg, opts, self.sample, self.sink)
+        # a paged engine on the card replays its prefill chunks and its
+        # decode forward from CUDA graphs, captured at its first admission
+        on_card = self.paged and self.device.type == "cuda"
+        self._graphs = PrefillGraphs(self) if on_card else None
+        self._decode = DecodeGraph(self) if on_card else None
         self.prefill_graph_replays = 0
         self.prefill_eager_chunks = 0
+        self.decode_graph_replays = 0
+        self.decode_eager_ticks = 0
         # MoE dispatch counts (layers routing through models/moe.py): the
         # copies routed and the expert rows computed, from shapes; the
         # copies dropped, where a capacity applies, on the device
@@ -421,6 +564,13 @@ class ServeEngine(EngineCore):
 
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def graph_signature(self, device: torch.device, key) -> tuple:
+        """A graph's entry in :data:`GRAPH_SIGNATURES`: this engine's
+        (cfg, opts, pool geometry) on ``device``, and ``key`` (a chunk
+        width, or ``("decode", slots)``)."""
+        return (self.cfg, self.opts, str(device), self.num_blocks,
+                self.block_size, self.table_cols, key)
 
     # ------------------------------------------------------------------
     # admission
@@ -566,13 +716,16 @@ class ServeEngine(EngineCore):
         """Allocate KV (paged: may raise :class:`BlockPoolExhausted` BEFORE
         any compute — the caller backpressures), chunk-prefill, bind.  The
         first admission of a paged engine on the card captures its prefill
-        graphs first, while no slot holds a block."""
+        graphs and then its decode graph first, while no slot holds a
+        block."""
         S = int(np.shape(req.tokens)[0])
         if self._graphs is not None and not self._graphs.graphs:
             self._graphs.capture()
             self._count("serve_prefill_graphs_total",
                         "prefill chunk widths captured as CUDA graphs",
                         len(self._graphs.graphs))
+            if self._decode is not None:
+                self._decode.capture(self._graphs.pool)
         if self.paged:
             ncols = self._blocks_needed(S, req.max_new_tokens)
             blocks = self.block_pool.alloc(ncols, req.rid)
@@ -691,10 +844,12 @@ class ServeEngine(EngineCore):
         for every active slot.  Returns tokens generated.
 
         Phase spans: ``decode`` holds ``decode.upload`` (the slots' last
-        tokens, positions and, paged, the block table), ``decode.forward``
-        (the model step and sampling as enqueued) and ``decode.read`` (the
-        sampled ids' fetch, which waits for the card); ``commit`` (the
-        tokens appended, budgets applied, requests retired) follows."""
+        tokens, positions and, paged, the block table; into the decode
+        graph's inputs, one copy), ``decode.forward`` (the model step and
+        sampling as enqueued, ``graph=1`` where it is a replay) and
+        ``decode.read`` (the sampled ids' fetch, which waits for the card);
+        ``commit`` (the tokens appended, budgets applied, requests
+        retired) follows."""
         t0 = self.begin_tick()
         if not any(self.active):
             self.end_tick(t0, 0)
@@ -702,16 +857,29 @@ class ServeEngine(EngineCore):
 
         t_d = self.clock.now_s()
         n_active = sum(r is not None for r in self.active)
+        graph = self._decode
         with self.tspan("decode", n=n_active):
-            with self.tspan("decode.upload"):
-                tokens = self._dev(self.slot_last[:, None], torch.long)
-                positions = self._dev(self.slot_pos)
-                pages = ((self._dev(self._tbl), self._dev(self._tbl_len))
-                         if self.paged else ())
-            with self.tspan("decode.forward"), self.observing():
-                nxt, self.caches = self._fns[
-                    "paged_decode" if self.paged else "decode"](
-                    self.params, self.caches, tokens, positions, *pages)
+            if graph is not None and graph.graph is not None:
+                with self.tspan("decode.upload"):
+                    graph.upload()
+                with self.tspan("decode.forward", graph=1):
+                    nxt = graph.run()
+                self.decode_graph_replays += 1
+                self._count("serve_decode_graph_replays_total",
+                            "decode ticks replayed from a CUDA graph", 1)
+            else:
+                with self.tspan("decode.upload"):
+                    tokens = self._dev(self.slot_last[:, None], torch.long)
+                    positions = self._dev(self.slot_pos)
+                    pages = ((self._dev(self._tbl), self._dev(self._tbl_len))
+                             if self.paged else ())
+                with self.tspan("decode.forward"), self.observing():
+                    nxt, self.caches = self._fns[
+                        "paged_decode" if self.paged else "decode"](
+                        self.params, self.caches, tokens, positions, *pages)
+                self.decode_eager_ticks += 1
+                self._count("serve_decode_eager_ticks_total",
+                            "decode ticks run eagerly", 1)
             self._count_moe(self.slots)
             with self.tspan("decode.read"):
                 nxt_host = nxt.cpu().numpy()
@@ -742,8 +910,9 @@ class ServeEngine(EngineCore):
 
     def stats(self) -> dict:
         """Serving-loop telemetry (mirrors the vision engine's), with the
-        port's prefill counts: chunks replayed from graphs, chunks run
-        eagerly, and the widths captured; with MoE layers, the copies
+        port's prefill counts (chunks replayed from graphs, chunks run
+        eagerly, the widths captured) and decode counts (ticks replayed
+        from the decode graph, ticks run eagerly); with MoE layers, the copies
         routed, the expert rows computed and the copies dropped (0 where
         the config serves dropless; else read from the card, which waits
         for it)."""
@@ -758,6 +927,8 @@ class ServeEngine(EngineCore):
             "prefill_eager_chunks": self.prefill_eager_chunks,
             "prefill_graphs": (len(self._graphs.graphs)
                                if self._graphs is not None else 0),
+            "decode_graph_replays": self.decode_graph_replays,
+            "decode_eager_ticks": self.decode_eager_ticks,
         }
         if self._moe_layers:
             out["moe_routed_copies"] = self.moe_routed_copies

@@ -540,7 +540,9 @@ def test_decode_spans_hold_their_launches_on_the_profilers_clock(dev):
     spans (``portbench/harness/trace.py``: spans on ``time.perf_counter``,
     shifted by ``time.time_ns() - time.perf_counter_ns()`` read as the
     profiler starts): in ticks that only decode, every kernel launch the
-    profiler records lies inside a ``decode`` span of the token engine."""
+    profiler records lies inside a ``decode`` span of the token engine
+    (decoding eagerly, so that each tick launches every kernel: a replay
+    of the decode graph launches one graph)."""
     from portbench.harness.session import tracer_spans
     from portbench.harness.trace import DeviceTrace
     from repro_torch.obs.tracing import SpanTracer
@@ -550,6 +552,7 @@ def test_decode_spans_hold_their_launches_on_the_profilers_clock(dev):
     eng = ServeEngine(cfg, params, slots=2, cache_capacity=64,
                       prefill_chunk=16, block_size=16, paged=True,
                       opts=RunOpts(use_kernels=True), device=dev)
+    eng._decode = None
     rng = np.random.default_rng(0)
     for i, n in enumerate((23, 12)):
         eng.submit(Request(rid=f"r{i}", tokens=rng.integers(0, 256, n),
@@ -1645,7 +1648,8 @@ def test_graph_engine_serves_the_eager_engines_tokens(dev, no_tf32, arch,
     layers; the VLM; the plain attention), chunks up to 128: prompts that
     take every width give the same tokens through the graphs as through
     the eager engine (no graphs).  The 8 widths are captured at the first
-    admission and never again; every chunk is a replay."""
+    admission and never again, with the decode graph (one signature more);
+    every chunk is a replay, and so is every decode tick."""
     import dataclasses
     from repro_torch.obs.probes import jit_cache_entries
     from repro_torch.serving import engine as serving
@@ -1670,7 +1674,7 @@ def test_graph_engine_serves_the_eager_engines_tokens(dev, no_tf32, arch,
             eng.step()
             made = dict(eng._graphs.graphs)
             assert eng.stats()["prefill_graphs"] == len(made) == 8
-            assert len(serving.GRAPH_SIGNATURES) == n0 + 8
+            assert len(serving.GRAPH_SIGNATURES) == n0 + 9
             entries = jit_cache_entries()
         streams[side] = {r.rid: r.generated for r in eng.run()}
         stats[side] = eng.stats()
@@ -1683,6 +1687,10 @@ def test_graph_engine_serves_the_eager_engines_tokens(dev, no_tf32, arch,
             stats["graphs"]["prefill_eager_chunks"]) == (chunks, 0)
     assert (stats["eager"]["prefill_graph_replays"],
             stats["eager"]["prefill_eager_chunks"]) == (0, chunks)
+    assert stats["graphs"]["decode_eager_ticks"] == 0
+    assert (stats["eager"]["decode_graph_replays"],
+            stats["eager"]["decode_eager_ticks"]) == (
+        0, stats["graphs"]["decode_graph_replays"])
 
 
 @pytest.mark.cuda
@@ -1822,3 +1830,157 @@ def test_paged_mla_decode_at_published_widths_agrees_with_the_reference(dev):
     checks = lm_serve.check(torch, conf, params, done, 11, mix, limits, dev)
     gap, limit = checks["token_gap"]
     assert 0 <= gap <= limit, (gap, limit)
+
+
+# ---------------------------------------------------------------------------
+# the paged decode tick's CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _decode_models(arch, dev):
+    """(cfg, params) at published widths, two layers, bf16: starcoder2-3b,
+    or deepseek-v2-lite (a dense and a MoE layer)."""
+    import dataclasses
+    if arch == "deepseek-v2-lite":
+        _, cfg, params = _dsv2(2, dev)
+        return cfg, params
+    cfg = dataclasses.replace(get_arch("starcoder2-3b"), num_layers=2)
+    return cfg, TT.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "deepseek-v2-lite"])
+def test_decode_graph_replays_the_eager_decode_bit_for_bit(dev, arch):
+    """Two layers at published widths, bf16, 256 slots: an engine whose
+    decode ticks are replays of its graph and one that decodes eagerly
+    (both prefill from graphs) serve 300 requests of 1-99 prompt tokens and
+    1-12 outputs (slots retire on different ticks and later requests are
+    admitted mid-run) with the same tokens, tick by tick, and leave the
+    same pool: every position, the features at every live entry.  Every
+    tick of the one is a replay, of the other eager.  A replay and its
+    upload wait for nothing (``set_sync_debug_mode("error")``)."""
+    cfg, params = _decode_models(arch, dev)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(n)), int(m)) for n, m in
+            zip(rng.integers(1, 100, 300), rng.integers(1, 13, 300))]
+    engines = []
+    for graph in (True, False):
+        eng = _graph_engine(cfg, params, dev, slots=256, cache_capacity=256)
+        if not graph:
+            eng._decode = None
+        for i, (p, m) in enumerate(reqs):
+            eng.submit(Request(rid=f"r{i}", tokens=p, max_new_tokens=m))
+        engines.append(eng)
+    g, e = engines
+    ticks = 0
+    while g.has_work() or e.has_work():
+        assert g.step() == e.step()
+        ticks += 1
+        assert np.array_equal(g.slot_last, e.slot_last), ticks
+        assert np.array_equal(g._tbl, e._tbl), ticks
+    assert ticks >= 12 and len(g.finished) == 300
+    assert ({r.rid: r.generated for r in g.finished}
+            == {r.rid: r.generated for r in e.finished})
+    for a, b in zip(g.caches, e.caches):
+        assert torch.equal(a["ppos"], b["ppos"])
+        live = b["ppos"] >= 0
+        for k in a:
+            if k != "ppos":
+                assert torch.equal(a[k][live], b[k][live]), k
+    assert (g.stats()["decode_graph_replays"], g.stats()["decode_eager_ticks"],
+            e.stats()["decode_graph_replays"], e.stats()["decode_eager_ticks"]
+            ) == (ticks, 0, 0, ticks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g._decode.upload()
+        g._decode.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_decode_capture_leaves_the_pool_and_the_prefill_graphs_buffers(dev):
+    """Captured after the prefill graphs, in their memory pool, the decode
+    graph at 256 slots leaves every block of the pool as it was (a slot's
+    stale positions and K/V included: the warm-up's entries all land in
+    the sink, which holds no position after) and the ticket buffers the
+    prefill graphs hold in place; its launches are counted per replay."""
+    from repro_torch.kernels import attention_common as ac
+    cfg = get_arch("starcoder2-3b").reduced()
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    eng = _graph_engine(cfg, params, dev, slots=256, cache_capacity=64,
+                        prefill_chunk=16, block_size=4)
+    eng._graphs.capture()
+    card = params["embed"]["tokens"].device
+    held = {kind: t for (kind, d), t in ac._COUNTERS.items() if d == card}
+    sink = eng.sink
+    for c in eng.caches:
+        c["ppos"][:sink] = torch.randint(0, 60, c["ppos"][:sink].shape,
+                                         dtype=torch.int32, device=dev)
+        c["kp"].normal_()
+        c["vp"].normal_()
+    before = _pool(eng.caches)
+    eng._decode.capture(eng._graphs.pool)
+    torch.cuda.synchronize()
+    for c, b in zip(eng.caches, before):
+        for k in c:
+            assert torch.equal(c[k][:sink], b[k][:sink]), k
+        assert bool((c["ppos"][sink] == -1).all())
+    for (kind, d), t in ac._COUNTERS.items():
+        if d == card:
+            assert t is held[kind], kind
+    _, _, launched = eng._decode.graph
+    assert launched == {"paged_decode": cfg.num_layers}
+    n = kops.launches()["paged_decode"]
+    eng._decode.upload()
+    eng._decode.run()
+    assert kops.launches()["paged_decode"] == n + cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_decode_capture_after_a_dropped_engine_that_held_graphs(dev):
+    """An engine that captured its prefill and decode graphs and served,
+    dropped with the cyclic garbage collector off, frees its graphs at
+    once (they refer to it weakly: no cycle runs through it).  A second
+    engine then captures and serves with the collector run at nearly
+    every allocation (``gc.set_threshold(1)``), which no longer finds a
+    dead engine's graphs to destroy inside the capture (that invalidates
+    it), and serves the first engine's tokens from its graphs."""
+    import gc
+    import weakref
+    cfg = get_arch("starcoder2-3b").reduced()
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, int(n)) for n in (5, 23, 12, 40, 9)]
+
+    def drain():
+        eng = _graph_engine(cfg, params, dev, slots=3, cache_capacity=64,
+                            prefill_chunk=16, block_size=4)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=f"r{i}", tokens=p, max_new_tokens=6))
+        return eng, {r.rid: r.generated for r in eng.run()}
+
+    first, want = drain()
+    refs = [weakref.ref(first), weakref.ref(first._decode.graph[0])] + [
+        weakref.ref(g) for g, _, _ in first._graphs.graphs.values()]
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del first
+        assert all(r() is None for r in refs)
+    finally:
+        if collecting:
+            gc.enable()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        second, got = drain()
+    finally:
+        gc.set_threshold(*threshold)
+    assert got == want
+    st = second.stats()
+    assert st["decode_graph_replays"] > 0 and st["decode_eager_ticks"] == 0
+    assert st["prefill_eager_chunks"] == 0

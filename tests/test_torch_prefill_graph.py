@@ -4,7 +4,7 @@ A paged ``ServeEngine`` on the card replays each prefill chunk from a CUDA
 graph (``serving.engine.PrefillGraphs``).  A graph replays the kernels its
 capture recorded; what differs from the eager chunk is what it may hold:
 a write plan that takes every entry and resets nothing
-(``attention.paged_chunk_plan``), with the recycled blocks invalidated
+(``attention.paged_decode_plan``), with the recycled blocks invalidated
 once ahead of the first chunk (``attention.invalidate_blocks``), RoPE's
 kept frequencies, static inputs, and the chunk counts.  These tests hold
 each of those to the eager path.  A stand-in graph whose replay runs the
@@ -99,8 +99,9 @@ def test_chunk_plan_after_invalidation_leaves_the_write_plans_pool(seed):
     """Random pool geometries, a slot of recycled blocks that still hold a
     former owner's positions and K/V, a prompt that wraps the slot's ring:
     invalidating the slot's blocks once and writing every chunk through
-    ``paged_chunk_plan`` leaves ``kp``, ``vp`` and ``ppos`` bit for bit as
-    ``paged_write_plan`` does with the reset on the first chunk."""
+    the graphs' plan (``paged_decode_plan``) leaves ``kp``, ``vp`` and
+    ``ppos`` bit for bit as ``paged_write_plan`` does with the reset on the
+    first chunk, the pool's sink block included (every entry lands)."""
     rng = np.random.default_rng(seed)
     nb, bs = int(rng.integers(8, 40)), int(rng.choice([1, 2, 4, 8, 16]))
     hkv, d = int(rng.integers(1, 4)), int(rng.choice([4, 8]))
@@ -113,9 +114,11 @@ def test_chunk_plan_after_invalidation_leaves_the_write_plans_pool(seed):
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-    stale = {"kp": randn(nb, bs, hkv, d), "vp": randn(nb, bs, hkv, d),
+    # one block past the table's reach, the sink (block nb), empty
+    stale = {"kp": randn(nb + 1, bs, hkv, d), "vp": randn(nb + 1, bs, hkv, d),
              "ppos": torch.from_numpy(
-                 rng.integers(-1, 500, (nb, bs)).astype(np.int32))}
+                 rng.integers(-1, 500, (nb + 1, bs)).astype(np.int32))}
+    stale["ppos"][nb] = -1
     eager = {k: t.clone() for k, t in stale.items()}
     graph = {k: t.clone() for k, t in stale.items()}
     pages = {"tbl": torch.from_numpy(tbl),
@@ -133,7 +136,7 @@ def test_chunk_plan_after_invalidation_leaves_the_write_plans_pool(seed):
         attn.paged_write(eager, k, v, pos, dict(
             pages, reset=torch.tensor([int(c0 == 0)], dtype=torch.int32)))
         attn.paged_write(graph, k, v, pos, dict(
-            pages, plan=attn.paged_chunk_plan(pos, pages, bs)))
+            pages, plan=attn.paged_decode_plan(pos, pages, nb, bs)))
         for name in stale:
             assert torch.equal(graph[name], eager[name]), (name, c0, w)
         c0 += w
@@ -200,7 +203,7 @@ def test_forward_keeps_a_plan_it_is_given(monkeypatch):
              "len": torch.tensor([3], dtype=torch.int32),
              # block 6, which the table does not hold
              "plan": {"reset": None, "src": None,
-                      "dst": torch.arange(24, 28)}}
+                      "dst": torch.arange(24, 28), "pos": pos.reshape(-1)}}
     TT.forward(cfg, params, torch.tensor([[1, 2, 3, 4]]), positions=pos,
                caches=caches, pages=pages, opts=RunOpts())
     for c in caches:

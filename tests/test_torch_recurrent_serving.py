@@ -68,15 +68,16 @@ def _reqs(cls):
                 deadline_ms=dl) for rid, toks, mx, pr, dl in _workload()]
 
 
-def _prefill_stats(n=None):
-    """The port's own prefill counts in ``stats()`` on the CPU after the
-    first ``n`` prompts: no graph, every chunk eager, at most
-    ``prefill_chunk`` (8) wide: the descending powers of two of each
-    prompt."""
+def _port_stats(ticks, n=None):
+    """The port's own prefill and decode counts in ``stats()`` on the CPU
+    after the first ``n`` prompts: no graph, every chunk eager, at most
+    ``prefill_chunk`` (8) wide (the descending powers of two of each
+    prompt), and every one of the engine's ``ticks`` an eager decode."""
     chunks = sum(len(toks) // 8 + bin(len(toks) % 8).count("1")
                  for _, toks, *_ in _workload()[:n])
     return {"prefill_graph_replays": 0, "prefill_eager_chunks": chunks,
-            "prefill_graphs": 0}
+            "prefill_graphs": 0, "decode_graph_replays": 0,
+            "decode_eager_ticks": ticks}
 
 
 def _summary(eng, done):
@@ -132,7 +133,7 @@ def test_engine_matches_reference(drained, arch, use_kernels):
     assert [r[:2] for r in got_reqs] == [r[:2] for r in want_reqs]
     assert got_reqs == want_reqs
     assert got_recs == want_recs
-    assert got_stats == dict(want_stats, **_prefill_stats())
+    assert got_stats == dict(want_stats, **_port_stats(want_stats["ticks"]))
     assert len(got_reqs) == len(_workload())
     assert any(r[2 + TIMING.index("truncated")] for r in got_reqs)
     # every slot's final state, retired slots included (they keep stepping
@@ -233,8 +234,8 @@ def test_evacuate_and_adopt_match_reference(models, arch):
         out[side] = ([(r.rid, round(a, 9)) for r, a in orphans],
                      _summary(other, done))
     orphans, (reqs, recs, stats) = out["ref"]
-    assert out["port"] == (orphans, (reqs, recs,
-                                     dict(stats, **_prefill_stats(3))))
+    assert out["port"] == (orphans, (reqs, recs, dict(
+        stats, **_port_stats(stats["ticks"], 3))))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

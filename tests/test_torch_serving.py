@@ -58,14 +58,16 @@ def _workload():
              10.0 if i in (2, 5) else 0.0) for i, n in enumerate(lens)]
 
 
-def _prefill_stats():
-    """The port's own prefill counts in ``stats()`` on the CPU: no graph,
-    every chunk eager, at most ``prefill_chunk`` (8) wide: the descending
-    powers of two of each prompt."""
+def _port_stats(ticks):
+    """The port's own prefill and decode counts in ``stats()`` on the CPU:
+    no graph, every chunk eager, at most ``prefill_chunk`` (8) wide (the
+    descending powers of two of each prompt), and every one of the drain's
+    ``ticks`` an eager decode."""
     chunks = sum(len(toks) // 8 + bin(len(toks) % 8).count("1")
                  for _, toks, *_ in _workload())
     return {"prefill_graph_replays": 0, "prefill_eager_chunks": chunks,
-            "prefill_graphs": 0}
+            "prefill_graphs": 0, "decode_graph_replays": 0,
+            "decode_eager_ticks": ticks}
 
 
 def _summary(eng, done, caches):
@@ -113,21 +115,26 @@ def test_engine_matches_reference(drained, paged, use_kernels):
     assert [r[:2] for r in got_reqs] == [r[:2] for r in want_reqs]
     assert got_reqs == want_reqs
     assert got_recs == want_recs
-    assert got_stats == dict(want_stats, **_prefill_stats())
+    assert got_stats == dict(want_stats, **_port_stats(want_stats["ticks"]))
     assert len(got_reqs) == len(_workload())
     assert any(r[2 + TIMING.index("truncated")] for r in got_reqs)
     if use_kernels:
         return
     # the plain path leaves the caches as the reference does, retired
     # slots included: they keep advancing their position and (contiguous)
-    # writing their own row, which the next admission overwrites
+    # writing their own row, which the next admission overwrites; a paged
+    # pool holds one block past the reference's, the sink, which holds no
+    # position
     for got, want in zip(got_caches, want_caches):
         for name, w in want.items():
+            g = got[name][:len(w)]
             if w.dtype == torch.int32:
-                assert torch.equal(got[name], w), name
+                assert torch.equal(g, w), name
             else:
-                torch.testing.assert_close(got[name], w, rtol=1e-4,
-                                           atol=1e-5)
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        if paged:
+            assert len(got["ppos"]) == len(want["ppos"]) + 1
+            assert bool((got["ppos"][-1] == -1).all())
 
 
 def test_paged_pool_drains(drained):
